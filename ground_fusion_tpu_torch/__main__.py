@@ -1,0 +1,84 @@
+"""CLI entry: run the full system on a converted sequence directory.
+
+    python -m ground_fusion_tpu_torch <config.yaml> <sequence_dir> [out_dir]
+        [--device cuda|cpu]
+
+The ``rosrun vins vins_node config.yaml`` + ``rosbag play`` analog
+(README.md:146-161) for the file-driven dataset layout of
+:mod:`ground_fusion_tpu_torch.io.dataset`. The system runs on the GPU unless
+``--device cpu`` is given; without a GPU and without that flag it exits with
+an error. The burst mode, checkpointing and GNSS replay options of the JAX
+package's CLI are not ported yet."""
+
+from __future__ import annotations
+
+import sys
+
+
+def main(argv=None):
+    argv = list(argv if argv is not None else sys.argv[1:])
+    device = None
+    if "--device" in argv:
+        i = argv.index("--device")
+        if i + 1 >= len(argv):
+            print(__doc__)
+            return 2
+        device = argv[i + 1]
+        del argv[i : i + 2]
+    if len(argv) < 2:
+        print(__doc__)
+        return 2
+    cfg_path, seq_dir = argv[0], argv[1]
+    out_dir = argv[2] if len(argv) > 2 else "output"
+    run(cfg_path, seq_dir, out_dir, device=device)
+    return 0
+
+
+def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None):
+    """The CLI replay loop; returns the finished :class:`GroundFusionSystem`
+    (tests and the smoke script assert on its internals afterwards)."""
+    import numpy as np
+
+    from .config import load_yaml
+    from .io.dataset import Sequence, load_image
+    from .system import GroundFusionSystem
+    from .utils.evaluate import ate_rmse
+
+    cfg = load_yaml(cfg_path)
+    seq = Sequence.load(seq_dir)
+    sys_ = GroundFusionSystem(cfg, out_dir, device=device)
+
+    imu_i = wheel_i = 0
+    for k, frame in enumerate(seq.frames):
+        t, img_path, dep_path = frame[0], frame[1], frame[2]
+        right_path = frame[3] if len(frame) > 3 else None
+        while imu_i < len(seq.imu) and seq.imu[imu_i, 0] <= t:
+            row = seq.imu[imu_i]
+            sys_.input_imu(row[0], row[1:4], row[4:7])
+            imu_i += 1
+        if seq.wheel is not None:
+            while wheel_i < len(seq.wheel) and seq.wheel[wheel_i, 0] <= t:
+                row = seq.wheel[wheel_i]
+                sys_.input_wheel(row[0], row[1:4], row[4:7])
+                wheel_i += 1
+        img = load_image(img_path)
+        depth = load_image(dep_path) if dep_path else None
+        right = load_image(right_path) if right_path else None
+        pose = sys_.input_image(t, img, depth, img_right=right)
+        if pose is not None and k % 10 == 0:
+            print(f"frame {k}/{len(seq.frames)}  t={t:.2f}  "
+                  f"p=[{pose[0]:.2f},{pose[1]:.2f},{pose[2]:.2f}]")
+    out = sys_.finish()
+    print(f"trajectory written to {out}")
+    if seq.gt is not None:
+        est = np.loadtxt(out, ndmin=2)
+        if len(est):
+            gt_interp = np.stack([
+                np.interp(est[:, 0], seq.gt[:, 0], seq.gt[:, i]) for i in (1, 2, 3)
+            ], -1)
+            print(f"ATE RMSE vs gt: {ate_rmse(est[:, 1:4], gt_interp):.4f} m")
+    return sys_
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

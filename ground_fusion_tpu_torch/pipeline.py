@@ -1,0 +1,593 @@
+"""Host-side estimator pipeline: sensor ingest, window fill, initialization
+dispatch, keyframe decision, and the per-frame window step.
+
+This is the replacement for the reference's node main loop + estimator
+measurement pump (``rosNodeTest.cpp:290-565`` sync_process,
+``estimator.cpp:526-711`` processMeasurements, ``:843-1163`` processImage):
+the host owns only queues, slot allocation and mode switches; all math runs
+on the device in :func:`~.estimator.step.make_window_step`'s step.
+
+Device↔host traffic per frame is two fetches — the landmark table's masks
+before the frame is written (keyframe gate + slot recycling) and the step's
+packed outputs after it — plus the uploads of the new interval and the new
+observations.
+
+Only the per-frame path is ported: the burst, live and fleet modes, GNSS,
+lines and checkpointing of the JAX package are not, and the sensor queues are
+plain Python lists (the C++ ring-buffer ingest is not ported yet).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .config import Config
+from .estimator.assembly import empty_prior
+from .estimator.buffers import (
+    empty_imu_buffer,
+    empty_wheel_buffer,
+    preintegrate_imu_window,
+    preintegrate_wheel_window,
+    slide_old_imu_buffer,
+    slide_old_wheel_buffer,
+)
+from .estimator.gates import failure_detection
+from .estimator.initialization import (
+    align_window_to_gravity,
+    linear_alignment_wheel,
+    solve_gyroscope_bias,
+    stationary_bias_init,
+)
+from .estimator.step import EstimatorCore, StepFlags, make_window_step
+from .estimator.window import empty_state, empty_tracks, slide_old_state, slide_old_tracks
+from .geometry.se3 import pose as make_pose, pose_compose, pose_inverse
+from .geometry.so3 import mat_to_quat, quat_to_mat
+from .preintegration.imu import noise_cov
+from .preintegration.wheel import wheel_noise_cov
+from .utils import np_quat
+
+
+@dataclass
+class FrameFeature:
+    """One feature observation handed in by the front-end (the per-id entry of
+    ``trackImage``'s output map, feature_tracker.h:47-48)."""
+
+    x: float
+    y: float
+    vx: float = 0.0
+    vy: float = 0.0
+    depth: float = 0.0
+
+
+class Estimator:
+    """Sliding-window RGBD/VIO/wheel estimator (host orchestration)."""
+
+    INITIAL = 0
+    NON_LINEAR = 1
+
+    def __init__(self, cfg: Config, dtype=torch.float32, device=None):
+        """``device=None`` means the GPU and raises when there is none; pass
+        ``device="cpu"`` to run on the CPU on purpose."""
+        if cfg.solver.calibrate_extrinsic:
+            raise NotImplementedError(
+                "solver.calibrate_extrinsic needs the visual-SfM relative-pose "
+                "RANSAC, which is not ported to ground_fusion_tpu_torch yet "
+                "(ROADMAP.md, queue 1: visual-SfM init)")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.step_fn, self.layout = make_window_step(cfg, self.device)
+        self.f = cfg.num_frames
+        self.core = self._empty_core()
+        self.solver_flag = self.INITIAL
+        self.frame_count = 0              # frames currently occupied (fill phase)
+        self.ts: list[float] = []
+        self.slot_of: dict[int, int] = {}
+        self.free_slots = list(range(cfg.solver.max_landmarks))
+        # raw queues since the previous frame
+        self.imu_q: list[tuple[float, np.ndarray, np.ndarray]] = []
+        self.wheel_q: list[tuple[float, np.ndarray, np.ndarray]] = []
+        self.last_imu: Optional[tuple] = None
+        self.last_wheel: Optional[tuple] = None
+        self.all_imu_window: list[list] = []      # per-interval copies for init stats
+        self.trajectory: list[tuple[float, np.ndarray]] = []
+        self.keyframe_flags: list[bool] = []
+        # running parallax bookkeeping
+        self._prev_feats: dict[int, FrameFeature] = {}
+        self._fp: Optional[dict] = None
+        self._fp_seed: Optional[tuple] = None
+        self._last_sb: Optional[np.ndarray] = None
+        self._last_out_failed: Optional[bool] = None
+        self.reboots = 0
+
+    def _kw(self):
+        return dict(dtype=self.dtype, device=self.device)
+
+    def _empty_core(self) -> EstimatorCore:
+        cfg, f = self.cfg, self.f
+        return EstimatorCore(
+            state=self._initial_state(),
+            tracks=empty_tracks(cfg.solver.max_landmarks, f, **self._kw()),
+            imu_buf=empty_imu_buffer(f, cfg.solver.max_imu_per_interval, **self._kw()),
+            wheel_buf=empty_wheel_buffer(f, cfg.solver.max_wheel_per_interval, **self._kw()),
+            prior=empty_prior(self.layout, f, **self._kw()),
+        )
+
+    def _initial_state(self):
+        """Seed the window state from the config — the reference's
+        ``setParameter`` copies TIC/RIC/TIO/RIO/sx,sy,sw/td/td_wheel into the
+        estimator before anything runs (estimator.cpp:168-211)."""
+        cfg = self.cfg
+        kw = self._kw()
+        st = empty_state(self.f, **kw)
+        return st._replace(
+            ex_cam=torch.tensor(list(cfg.camera.t_ic) + list(cfg.camera.q_ic), **kw),
+            ex_wheel=torch.tensor(list(cfg.wheel.t_io) + list(cfg.wheel.q_io), **kw),
+            s_wheel=torch.tensor([cfg.wheel.sx, cfg.wheel.sy, cfg.wheel.sw], **kw),
+            td=torch.tensor(cfg.solver.td, **kw),
+            td_wheel=torch.tensor(cfg.wheel.td, **kw),
+        )
+
+    def _upload(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a)).to(device=self.device, dtype=dtype or self.dtype)
+
+    # ------------------------------------------------------------------ ingest
+
+    def input_imu(self, t: float, acc, gyr) -> None:
+        acc = np.asarray(acc, np.float64)
+        gyr = np.asarray(gyr, np.float64)
+        self.imu_q.append((t, acc, gyr))
+        self._fast_predict(t, acc, gyr)
+
+    def _fast_predict(self, t, acc, gyr):
+        """IMU-rate dead-reckoned odometry on top of the last optimized state
+        (Estimator::fastPredictIMU, estimator.cpp:4014-4030; published as the
+        ~200 Hz latest-odometry path). Read via :meth:`latest_odometry`."""
+        if self.solver_flag != self.NON_LINEAR:
+            self._fp = None
+            return
+        if self._fp is None:
+            if self._fp_seed is not None:
+                # seeded from the last step's fetched outputs — no extra
+                # device→host round trip per seed
+                pose, sb = self._fp_seed
+            else:
+                pose, sb = (x.cpu().numpy().astype(np.float64) for x in (
+                    self.core.state.poses[self.f - 1], self.core.state.sbs[self.f - 1]))
+            self._fp = {
+                "t": t,
+                "p": np.asarray(pose[0:3], np.float64),
+                "q": np.asarray(pose[3:7], np.float64),
+                "v": np.asarray(sb[0:3], np.float64),
+                "ba": np.asarray(sb[3:6], np.float64),
+                "bg": np.asarray(sb[6:9], np.float64),
+                "acc": acc, "gyr": gyr,
+            }
+            return
+        fp = self._fp
+        dt = t - fp["t"]
+        if dt <= 0 or dt > 1.0:
+            fp.update(t=t, acc=acc, gyr=gyr)
+            return
+        g = np.array([0.0, 0.0, self.cfg.imu.g_norm])
+        R0 = np_quat.quat_to_mat(fp["q"])
+        un_acc0 = R0 @ (fp["acc"] - fp["ba"]) - g
+        un_gyr = 0.5 * (fp["gyr"] + gyr) - fp["bg"]
+        q = np_quat.quat_normalize(
+            np_quat.quat_mul(fp["q"], np.concatenate([[1.0], 0.5 * un_gyr * dt])))
+        R1 = np_quat.quat_to_mat(q)
+        un_acc1 = R1 @ (acc - fp["ba"]) - g
+        un_acc = 0.5 * (un_acc0 + un_acc1)
+        fp["p"] = fp["p"] + fp["v"] * dt + 0.5 * un_acc * dt * dt
+        fp["v"] = fp["v"] + un_acc * dt
+        fp.update(t=t, q=q, acc=acc, gyr=gyr)
+
+    def latest_odometry(self):
+        """(t, pose7, v) of the IMU-rate propagated state, or None."""
+        fp = self._fp
+        if fp is None:
+            return None
+        return fp["t"], np.concatenate([fp["p"], fp["q"]]), fp["v"]
+
+    def input_wheel(self, t: float, vel, gyr) -> None:
+        gyr = np.asarray(gyr, np.float64).copy()
+        if getattr(self.cfg.wheel, "w_replace", False) and self._fp is not None:
+            # wheel yaw-rate replaced by the latest IMU gyro z (w_replace,
+            # rosNodeTest.cpp:93-156 — wheel gyros are usually the worst axis)
+            gyr[2] = self._fp["gyr"][2] - self._fp["bg"][2]
+        self.wheel_q.append((t, np.asarray(vel, np.float64), gyr))
+
+    # ------------------------------------------------------- interval building
+
+    def _drain_interval(self, t1: float):
+        """Pop queued samples up to t1 into padded interval arrays."""
+        cfg = self.cfg
+        imu = [s for s in self.imu_q if s[0] <= t1 + 1e-9]
+        self.imu_q = [s for s in self.imu_q if s[0] > t1 + 1e-9]
+        wheel = [s for s in self.wheel_q if s[0] <= t1 + 1e-9]
+        self.wheel_q = [s for s in self.wheel_q if s[0] > t1 + 1e-9]
+
+        def pad(samples, last, cap, t_prev):
+            k = min(len(samples), cap)
+            dts = np.zeros(cap)
+            a = np.zeros((cap, 3))
+            g = np.zeros((cap, 3))
+            v = np.zeros(cap, bool)
+            tp = t_prev
+            for i, (t, x, w) in enumerate(samples[:k]):
+                dts[i] = t - tp
+                a[i], g[i], v[i] = x, w, True
+                tp = t
+            x0 = last[1] if last is not None else (samples[0][1] if samples else np.zeros(3))
+            g0 = last[2] if last is not None else (samples[0][2] if samples else np.zeros(3))
+            return dts, a, g, v, x0, g0
+
+        t_prev = self.ts[-1] if self.ts else (imu[0][0] if imu else t1)
+        iv = pad(imu, self.last_imu, cfg.solver.max_imu_per_interval, t_prev)
+        wv = pad(wheel, self.last_wheel, cfg.solver.max_wheel_per_interval, t_prev)
+        if imu:
+            self.last_imu = imu[-1]
+        if wheel:
+            self.last_wheel = wheel[-1]
+        self.all_imu_window.append(imu)
+        if len(self.all_imu_window) > self.f:
+            self.all_imu_window.pop(0)
+        return iv, wv
+
+    def _write_interval(self, slot: int, iv, wv):
+        """Upload one padded interval into slot ``slot`` of both buffers
+        (new tensors; the previous core is left untouched)."""
+        def put(buf, names, vals):
+            upd = {}
+            for name, val in zip(names, vals):
+                t = getattr(buf, name).clone()
+                t[slot] = self._upload(val, torch.bool if name == "valid" else None)
+                upd[name] = t
+            return buf._replace(**upd)
+
+        ib = put(self.core.imu_buf, ("dts", "acc", "gyr", "valid", "acc0", "gyr0"), iv)
+        wb = put(self.core.wheel_buf, ("dts", "vel", "gyr", "valid", "vel0", "gyr0"), wv)
+        self.core = self.core._replace(imu_buf=ib, wheel_buf=wb)
+
+    # --------------------------------------------------------- feature ingest
+
+    def _fetch_track_masks(self):
+        """ONE device→host fetch of what the host needs from the landmark
+        table this frame: (obs_valid [ML,F], active [ML], obs_xy [ML,F,2])."""
+        tr = self.core.tracks
+        ml, f = tr.obs_valid.shape
+        packed = torch.cat(
+            [tr.obs_valid.to(tr.obs.dtype), tr.active.to(tr.obs.dtype)[:, None],
+             tr.obs[..., 0:2].reshape(ml, 2 * f)], dim=1).cpu().numpy()
+        return packed[:, :f] > 0.5, packed[:, f] > 0.5, packed[:, f + 1 :].reshape(ml, f, 2)
+
+    def _assign_slots(self, feats: dict[int, FrameFeature], slot_frame: int,
+                      active_np: np.ndarray):
+        """Allocate/recycle landmark slots and write observations into the
+        padded Tracks table (FeatureManager::addFeature semantics)."""
+        tr = self.core.tracks
+
+        # recycle slots whose feature id vanished and track died
+        for fid, slot in list(self.slot_of.items()):
+            if not active_np[slot]:
+                del self.slot_of[fid]
+                self.free_slots.append(slot)
+
+        rows, vals, new_active = [], [], []
+        for fid, ft in feats.items():
+            slot = self.slot_of.get(fid)
+            if slot is None:
+                if not self.free_slots:
+                    continue  # table full — drop (reference caps at 1000 slots)
+                slot = self.free_slots.pop()
+                self.slot_of[fid] = slot
+                new_active.append(slot)
+            rows.append(slot)
+            vals.append([ft.x, ft.y, ft.vx, ft.vy, ft.depth])
+
+        obs, obs_valid = tr.obs.clone(), tr.obs_valid.clone()
+        if rows:
+            rows_t = self._upload(np.asarray(rows, np.int64), torch.int64)
+            obs[rows_t, slot_frame] = self._upload(np.asarray(vals, np.float64).reshape(-1, 5))
+            obs_valid[rows_t, slot_frame] = True
+        if new_active:
+            na = self._upload(np.asarray(new_active, np.int64), torch.int64)
+            # scrub stale observations left by the slot's previous tenant:
+            # only this frame's column may be valid for a fresh slot
+            keep_col = torch.zeros(self.f, dtype=torch.bool, device=self.device)
+            keep_col[slot_frame] = True
+            obs_valid[na] = obs_valid[na] & keep_col[None, :]
+            active, solve_ok, depth_fixed, start_frame, inv_depth = (
+                t.clone() for t in (tr.active, tr.solve_ok, tr.depth_fixed,
+                                    tr.start_frame, tr.inv_depth))
+            active[na] = True
+            solve_ok[na] = False
+            depth_fixed[na] = False
+            start_frame[na] = slot_frame
+            inv_depth[na] = 0.2
+            tr = tr._replace(active=active, solve_ok=solve_ok, depth_fixed=depth_fixed,
+                             start_frame=start_frame, inv_depth=inv_depth)
+        self.core = self.core._replace(tracks=tr._replace(obs=obs, obs_valid=obs_valid))
+
+    def _keyframe_decision(self, feats: dict[int, FrameFeature], ov, active, obs_xy) -> bool:
+        """Parallax / track-count keyframe gate
+        (``FeatureManager::addFeatureCheckParallax``, feature_manager.cpp:57-116).
+
+        Keyframe when track continuity is weak — fewer than 20 tracked
+        features, fewer than 40 long (≥4-observation) tracks, or more than
+        half the frame is new — or when the mean parallax between the
+        SECOND- and THIRD-last frames (the incoming frame is frame_count;
+        parallax is measured at frame_count−1 vs frame_count−2,
+        ``compensatedParallax2``, feature_manager.cpp:978-1012) reaches
+        MIN_PARALLAX. Note this fork ships compensatedParallax2 with the
+        rotation compensation commented out (``p_i_comp = p_i``,
+        feature_manager.cpp:998) — plain parallax is the faithful parity."""
+        tracked = [fid for fid in feats if fid in self._prev_feats]
+        last_track_num = len(tracked)
+        new_feature_num = len(feats) - last_track_num
+        if last_track_num < 20 or new_feature_num > 0.5 * last_track_num:
+            return True
+
+        obs_counts = ov.sum(axis=1)
+        # long tracks: the incoming observation brings them to ≥4
+        long_track_num = sum(
+            1 for fid in tracked
+            if (s := self.slot_of.get(fid)) is not None and obs_counts[s] >= 3
+        )
+        if long_track_num < 40:
+            return True
+
+        # mean parallax between the second- and third-last window frames
+        i, j = self.f - 3, self.f - 2
+        both = ov[:, i] & ov[:, j] & active
+        if not both.any():
+            return True
+        d = obs_xy[both, i] - obs_xy[both, j]
+        par = float(np.hypot(d[:, 0], d[:, 1]).mean())
+        min_parallax = self.cfg.solver.keyframe_parallax_px / self.cfg.solver.focal
+        return par >= min_parallax
+
+    # ------------------------------------------------------------- frame push
+
+    def input_frame(self, t: float, feats: dict[int, FrameFeature]) -> Optional[np.ndarray]:
+        """Process one synchronized camera frame's features. Returns the
+        newest optimized pose [7] once the estimator is running."""
+        ov, active, obs_xy = self._fetch_track_masks()
+        is_keyframe = self._keyframe_decision(feats, ov, active, obs_xy)
+        self._prev_feats = feats
+
+        if self.solver_flag == self.INITIAL:
+            return self._fill_or_init(t, feats, active)
+        return self._nonlinear_frame(t, feats, is_keyframe, active)
+
+    def _fill_or_init(self, t, feats, active_np):
+        f = self.f
+        k = self.frame_count
+        iv, wv = self._drain_interval(t)
+        self.ts.append(t)
+        self._write_interval(min(k, f - 1), iv, wv)
+        self._assign_slots(feats, min(k, f - 1), active_np)
+
+        # wheel dead-reckoned pose prediction during fill (initFramePoseByOdom
+        # analog, feature_manager.cpp:407-545)
+        if k > 0 and self.cfg.wheel.enabled:
+            self._predict_pose_from_wheel(min(k, f - 1))
+        self.frame_count += 1
+        if self.frame_count == f:
+            ok = self._initialize()
+            if ok:
+                self.solver_flag = self.NON_LINEAR
+                # init already placed every pose — don't re-propagate F-1
+                return self._run_step(marg_old=True, propagate_newest=False)
+            else:
+                # drop the oldest frame and keep filling (reference slides the
+                # init window, estimator.cpp:1092-1105)
+                self._slide_fill_window()
+        return None
+
+    def _noise(self):
+        cfg = self.cfg
+        n18 = noise_cov(cfg.imu.acc_n, cfg.imu.gyr_n, cfg.imu.acc_w, cfg.imu.gyr_w, **self._kw())
+        n12 = wheel_noise_cov(cfg.wheel.vel_n, cfg.wheel.gyr_n, **self._kw())
+        return n18, n12
+
+    def _predict_pose_from_wheel(self, slot: int):
+        """Compose previous pose with the wheel preintegration delta
+        (T^w_bj = T^w_bi · T_io · ΔT_o · T_io⁻¹)."""
+        _, n12 = self._noise()
+        st = self.core.state
+        wb = self.core.wheel_buf
+        one = type(wb)(*[a[slot : slot + 1] for a in wb])
+        wpre = preintegrate_wheel_window(one, st.s_wheel, st.td_wheel, n12)
+        ex = st.ex_wheel
+        delta_o = make_pose(wpre.delta_p[0], wpre.delta_q[0])
+        T_prev = st.poses[slot - 1]
+        T_new = pose_compose(pose_compose(pose_compose(T_prev, ex), delta_o), pose_inverse(ex))
+        poses = st.poses.clone()
+        poses[slot] = T_new
+        self.core = self.core._replace(state=st._replace(poses=poses))
+
+    def _slide_fill_window(self):
+        st = self.core.state
+        self.core = self.core._replace(
+            state=slide_old_state(st),
+            tracks=slide_old_tracks(st, self.core.tracks),
+            imu_buf=slide_old_imu_buffer(self.core.imu_buf),
+            wheel_buf=slide_old_wheel_buffer(self.core.wheel_buf),
+        )
+        self.ts.pop(0)
+        self.frame_count -= 1
+
+    # ---------------------------------------------------------------- init
+
+    def _imu_stats(self):
+        samples = [s for interval in self.all_imu_window for s in interval]
+        if not samples:
+            return None
+        accs = np.stack([s[1] for s in samples])
+        gyrs = np.stack([s[2] for s in samples])
+        return accs.mean(0), gyrs.mean(0), accs.var(0).sum(), gyrs.mean(0)
+
+    def _initialize(self) -> bool:
+        """3-mode dispatch (``Estimator::initialStructure``,
+        estimator.cpp:1557-1847): stationary → bias-only; excited + wheel →
+        gyro-bias solve + wheel linear alignment + gravity alignment; else →
+        visual SfM + PnP + VisualIMUAlignment (path C, not ported yet)."""
+        cfg = self.cfg
+        stats = self._imu_stats()
+        if stats is None:
+            return False
+        acc_mean, gyr_mean, acc_var, _ = stats
+        st = self.core.state
+
+        if acc_var < cfg.init.stationary_acc_var:
+            ba, bg, R0 = stationary_bias_init(
+                self._upload(acc_mean), self._upload(gyr_mean), cfg.imu.g_norm)
+            # g2r(acc_mean) is the yaw-free world-from-body rotation
+            pose0 = torch.cat([torch.zeros(3, **self._kw()), mat_to_quat(R0)])
+            poses = pose0.repeat(self.f, 1)
+            sbs = torch.cat([torch.zeros(self.f, 3, **self._kw()),
+                             ba.repeat(self.f, 1), bg.repeat(self.f, 1)], dim=1)
+            self.core = self.core._replace(state=st._replace(poses=poses, sbs=sbs))
+            return True
+
+        # dynamic / wheel-activation path (path B, estimator.cpp:1645-1682):
+        # gyro bias from wheel-predicted rotations + wheel linear alignment.
+        # On failure (or without a wheel) the reference falls through to the
+        # visual path, its general initializer.
+        n18, _ = self._noise()
+        imu_pre = preintegrate_imu_window(self.core.imu_buf, st.sbs, n18)
+        if cfg.wheel.enabled and self._wheel_excitation_init(st, imu_pre):
+            return True
+        return self._visual_initialize(imu_pre)
+
+    def _wheel_excitation_init(self, st, imu_pre) -> bool:
+        """Wheel-activation init (path B): gyro bias from the wheel-predicted
+        window rotations, wheel-aided linear alignment, gravity alignment."""
+        cfg = self.cfg
+        n18, n12 = self._noise()
+        valid = torch.arange(self.f, device=self.device) >= 1
+        dbg = solve_gyroscope_bias(st.poses[:, 3:7], imu_pre, valid)
+        st = st._replace(sbs=torch.cat([st.sbs[:, 0:6], st.sbs[:, 6:9] + dbg], dim=1))
+
+        # re-preintegrate at corrected bias and run the wheel linear alignment
+        imu_pre = preintegrate_imu_window(self.core.imu_buf, st.sbs, n18)
+        wheel_pre = preintegrate_wheel_window(self.core.wheel_buf, st.s_wheel, st.td_wheel, n12)
+        Rs = quat_to_mat(st.poses[:, 3:7])
+        Ts = st.poses[:, 0:3]
+        tic = st.ex_cam[0:3]
+        tio = st.ex_wheel[0:3]
+        rio = quat_to_mat(st.ex_wheel[3:7])
+        ok, g_est, vels_body, s = linear_alignment_wheel(
+            Rs, Ts, imu_pre, wheel_pre, tic, tio, rio, cfg.imu.g_norm
+        )
+        if not bool(ok):
+            return False
+        st = align_window_to_gravity(st, g_est, vels_body, cfg.imu.g_norm)
+        self.core = self.core._replace(state=st)
+        return True
+
+    def _visual_initialize(self, imu_pre) -> bool:
+        """Visual-SfM initialization (path C — the reference's general mode,
+        ``estimator.cpp:1712-1847``): global SfM over the window, gyro bias
+        from SfM rotations, VisualIMUAlignment, gravity alignment."""
+        raise NotImplementedError(
+            "visual-SfM initialization (estimator/sfm.py, global_layers/pnp.py, "
+            "Estimator._visual_initialize) is not ported to ground_fusion_tpu_torch "
+            "yet: neither the stationary nor the wheel-excitation initializer "
+            "accepted this window (ROADMAP.md, queue 1: visual-SfM init)")
+
+    # ------------------------------------------------------------- solve step
+
+    def _nonlinear_frame(self, t, feats, is_keyframe, active_np):
+        f = self.f
+        iv, wv = self._drain_interval(t)
+        self.ts.append(t)
+        if len(self.ts) > f:
+            self.ts.pop(0)
+        self._write_interval(f - 1, iv, wv)
+        self._assign_slots(feats, f - 1, active_np)
+        out = self._run_step(marg_old=is_keyframe, propagate_newest=True)
+        self._check_failure()
+        return out
+
+    def _check_failure(self):
+        """failureDetection → clearState reboot (estimator.cpp:1140-1148,
+        2847-2888): exploding bias norms restart the estimator from the
+        initialization phase, keeping the sensor queues."""
+        failed = self._last_out_failed
+        if failed is None:
+            failed = failure_detection(self.core.state.sbs.cpu().numpy(),
+                                       ba_thresh=self.cfg.solver.fail_ba_thresh,
+                                       bg_thresh=self.cfg.solver.fail_bg_thresh)
+        if failed:
+            self.reboot()
+
+    def reboot(self):
+        """clearState + setParameter equivalent: reset window state, tracks,
+        prior and mode; sensor queues and tracker ids survive (the reference
+        keeps subscriptions alive and re-enters INITIAL)."""
+        self.core = self._empty_core()
+        self.solver_flag = self.INITIAL
+        self.frame_count = 0
+        self.ts = []
+        self.slot_of = {}
+        self.free_slots = list(range(self.cfg.solver.max_landmarks))
+        self.all_imu_window = []
+        self._fp_seed = None
+        self._last_sb = None
+        self._last_out_failed = None
+        self.reboots += 1
+
+    def _run_step(self, marg_old: bool, propagate_newest: bool = False):
+        f = self.f
+        dev = self.device
+        # anomaly/stationarity gates are computed inside the step from the
+        # window buffers (estimator/gates.device_frame_gates); the flags
+        # below are host OVERRIDES only
+        interval = torch.arange(f, device=dev) >= 1
+        flags = StepFlags(
+            marg_old=bool(marg_old),
+            stationary=torch.zeros((), dtype=torch.bool, device=dev),
+            wheel_valid=interval,
+            imu_valid=interval,
+            td_obs=torch.zeros(f, **self._kw()),
+            propagate_newest=torch.full((), bool(propagate_newest), dtype=torch.bool, device=dev),
+        )
+        core_new, out = self.step_fn(self.core, flags)
+        self.core = core_new
+        # ONE packed device→host fetch for everything the host needs from
+        # this step (pose, speed/bias vector, failure flag); it also ends the
+        # step's device work, so a host clock around this call times the step
+        packed = torch.cat([out["pose"], out["sb"], out["failed"].to(self.dtype)[None]])
+        packed = packed.cpu().numpy().astype(np.float64)
+        pose = packed[0:7]
+        self._last_sb = packed[7:16]
+        self._last_out_failed = bool(packed[16] > 0.5)
+        self._fp = None   # fastPredict re-seeds from the fresh optimized state
+        self._fp_seed = (pose, self._last_sb)
+        self.trajectory.append((self.ts[-1], pose))
+        self.keyframe_flags.append(bool(marg_old))
+        if not marg_old:
+            # second-new slide dropped frame F-2's timestamp
+            self.ts = self.ts[: f - 2] + [self.ts[f - 1]]
+        else:
+            self.ts = self.ts[1:]
+        return pose
+
+    # ---------------------------------------------------------------- output
+
+    def write_tum(self, path: str) -> None:
+        """TUM-format trajectory dump (``visualization.cpp:346-358``)."""
+        with open(path, "w") as fp:
+            for t, p in self.trajectory:
+                # TUM: t x y z qx qy qz qw
+                fp.write(
+                    f"{t:.6f} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} "
+                    f"{p[4]:.6f} {p[5]:.6f} {p[6]:.6f} {p[3]:.6f}\n"
+                )

@@ -1,0 +1,168 @@
+"""Render a synthetic image sequence from the simulator into the dataset
+directory layout of :mod:`..io.dataset` — gives the full system (KLT front
+end included) an end-to-end driveable input without any external dataset.
+
+Gaussian blobs at the projected landmark pixels over a dark noisy background,
+a depth image that carries each blob's range, and the IMU / wheel / ground
+truth files, all from a seed. The intrinsics come from the caller's config,
+and so may the sensor mounts (:class:`Mounts`): the simulator's camera always
+looks along the direction of travel, and the IMU (the body frame the
+estimator solves for) and the wheel odometer are placed relative to that
+camera as the config's ``body_T_cam`` and ``body_T_wheel`` say, so that a
+config runs unchanged on the rendered sequence.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.func import jacfwd, vmap
+
+from ..utils import np_quat
+from .synthetic import (
+    F64,
+    SimParams,
+    _body_rates,
+    body_T_cam,
+    gt_pose7,
+    imu_samples,
+    make_landmarks,
+    project_landmarks,
+    wheel_samples,
+)
+
+
+class Mounts(NamedTuple):
+    """Sensor mounts as a config states them (translations in metres,
+    quaternions wxyz). The defaults are the simulator's own: the IMU at the
+    vehicle frame (x forward, z up) with the forward-looking camera of
+    :func:`..sim.synthetic.body_T_cam`, the wheel odometer at the IMU."""
+
+    t_ic: tuple = (0.0, 0.0, 0.0)
+    q_ic: tuple | None = None            # None: the simulator's camera rotation
+    t_io: tuple = (0.0, 0.0, 0.0)
+    q_io: tuple = (1.0, 0.0, 0.0, 0.0)
+
+    @classmethod
+    def from_config(cls, cfg) -> "Mounts":
+        return cls(tuple(cfg.camera.t_ic), tuple(cfg.camera.q_ic),
+                   tuple(cfg.wheel.t_io), tuple(cfg.wheel.q_io))
+
+
+def _rot(q) -> np.ndarray:
+    return np_quat.quat_to_mat(np_quat.quat_normalize(np.asarray(q, np.float64)))
+
+
+def _mat_to_quat(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix → wxyz quaternion with w ≥ 0 (host-side, one matrix)."""
+    w = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2.0
+    x = np.sqrt(max(0.0, 1.0 + R[0, 0] - R[1, 1] - R[2, 2])) / 2.0
+    y = np.sqrt(max(0.0, 1.0 - R[0, 0] + R[1, 1] - R[2, 2])) / 2.0
+    z = np.sqrt(max(0.0, 1.0 - R[0, 0] - R[1, 1] + R[2, 2])) / 2.0
+    q = np.array([w, np.copysign(x, R[2, 1] - R[1, 2]), np.copysign(y, R[0, 2] - R[2, 0]),
+                  np.copysign(z, R[1, 0] - R[0, 1])])
+    return q / np.linalg.norm(q)
+
+
+def vehicle_T_imu(mounts: Mounts):
+    """Where the IMU sits in the simulator's vehicle frame so that the
+    forward-looking camera is at the config's ``body_T_cam`` from it:
+    X = vehicle_T_cam ∘ (imu_T_cam)⁻¹ → (R_x [3,3], t_x [3])."""
+    ex = body_T_cam().numpy()
+    r_vc = np_quat.quat_to_mat(ex[3:7])
+    if mounts.q_ic is None:
+        return np.eye(3), ex[0:3] - np.asarray(mounts.t_ic, np.float64)
+    r_x = r_vc @ _rot(mounts.q_ic).T
+    return r_x, ex[0:3] - r_x @ np.asarray(mounts.t_ic, np.float64)
+
+
+def imu_at_mount(ts, sp: SimParams, r_x, t_x):
+    """IMU samples of an IMU rigidly mounted at ``(r_x, t_x)`` in the vehicle
+    frame: the lever arm adds α×t + ω×(ω×t) to the specific force, both
+    readings turn into the IMU's axes, and the biases are the IMU's own."""
+    acc, gyr = (x.numpy() for x in imu_samples(ts, sp))
+    acc, gyr = acc - np.asarray(sp.ba), gyr - np.asarray(sp.bg)
+    alpha = vmap(lambda t: jacfwd(lambda s: _body_rates(s, sp)[3])(t))(
+        torch.as_tensor(ts, dtype=F64)).numpy()
+    acc = acc + np.cross(alpha, t_x) + np.cross(gyr, np.cross(gyr, t_x))
+    return acc @ r_x + np.asarray(sp.ba), gyr @ r_x + np.asarray(sp.bg)
+
+
+def wheel_at_mount(ts, sp: SimParams, r_x, t_x, t_io, q_io):
+    """What a wheel odometer at ``body_T_wheel = (t_io, q_io)`` from that IMU
+    reports: the velocity of its own origin and the angular rate, both in its
+    own axes — v_o = R_ioᵀ (v_b + ω_b × t_io), ω_o = R_ioᵀ ω_b."""
+    vel, gyr = (x.numpy() for x in wheel_samples(ts, sp))
+    vel_b = (vel + np.cross(gyr, t_x)) @ r_x            # the IMU's velocity, its axes
+    gyr_b = gyr @ r_x
+    r_io = _rot(q_io)
+    return (vel_b + np.cross(gyr_b, np.asarray(t_io, np.float64))) @ r_io, gyr_b @ r_io
+
+
+def render_frame(uv_px, z, vis, rng, width: int, height: int):
+    """Gaussian blobs at projected landmark pixels over a dark background.
+    Returns (image [H,W] float32 in 0..255, depth [H,W] float32, 0 = none)."""
+    img = rng.normal(8.0, 1.0, (height, width)).astype(np.float32)
+    depth = np.zeros((height, width), np.float32)
+    ys, xs = np.mgrid[0:7, 0:7] - 3
+    blob = 200.0 * np.exp(-(xs**2 + ys**2) / 4.0)
+    for (u, v), d, ok in zip(uv_px, z, vis):
+        if not ok:
+            continue
+        ui, vi = int(round(u)), int(round(v))
+        if 4 <= ui < width - 4 and 4 <= vi < height - 4:
+            img[vi - 3 : vi + 4, ui - 3 : ui + 4] += blob
+            depth[vi - 3 : vi + 4, ui - 3 : ui + 4] = d
+    return np.clip(img, 0, 255), depth
+
+
+def render_sequence(out_dir: str, n_frames: int, fx: float, fy: float, cx: float,
+                    cy: float, width: int, height: int, sp: SimParams | None = None,
+                    n_landmarks: int = 600, seed: int = 0,
+                    mounts: Mounts | None = None) -> str:
+    """Write ``n_frames`` rendered frames plus ``imu.csv``, ``wheel.csv``,
+    ``frames.csv`` and ``gt.csv`` (the IMU's pose) into ``out_dir``; returns
+    ``out_dir``. ``mounts=None`` keeps the simulator's own sensor frames."""
+    sp = sp if sp is not None else SimParams(omega=0.25)
+    mounts = mounts if mounts is not None else Mounts()
+    os.makedirs(os.path.join(out_dir, "img"), exist_ok=True)
+    ex = body_T_cam()
+    r_x, t_x = vehicle_T_imu(mounts)
+    pts_w = torch.as_tensor(make_landmarks(n_landmarks, sp, seed=seed + 1), dtype=torch.float64)
+    rng = np.random.default_rng(seed)
+
+    frame_dt = 1.0 / sp.frame_rate
+    imu_rows, wheel_rows, frame_rows, gt_rows = [], [], [], []
+    for k in range(n_frames):
+        t = k * frame_dt
+        tp = t - frame_dt if k else t
+        ts = np.arange(tp, t + 1e-9, 1.0 / sp.imu_rate) if k else np.asarray([t])
+        a, g = imu_at_mount(ts, sp, r_x, t_x)
+        imu_rows.extend(np.concatenate([ts[:, None], a, g], axis=1))
+        ts = np.arange(tp, t + 1e-9, 1.0 / sp.wheel_rate) if k else np.asarray([t])
+        v, g = wheel_at_mount(ts, sp, r_x, t_x, mounts.t_io, mounts.q_io)
+        wheel_rows.extend(np.concatenate([ts[:, None], v, g], axis=1))
+
+        pose = gt_pose7(t, sp)
+        uv, z, vis = project_landmarks(pose, ex, pts_w)
+        uv_px = uv.numpy() * [fx, fy] + [cx, cy]
+        img, depth = render_frame(uv_px, z.numpy(), vis.numpy(), rng, width, height)
+        np.save(os.path.join(out_dir, "img", f"{k:05d}.npy"), img)
+        np.save(os.path.join(out_dir, "img", f"{k:05d}_d.npy"), depth)
+        frame_rows.append(f"{t:.6f},img/{k:05d}.npy,img/{k:05d}_d.npy")
+        p = pose.numpy()
+        r_wv = np_quat.quat_to_mat(p[3:7])
+        p_imu = p[0:3] + r_wv @ t_x
+        q = _mat_to_quat(r_wv @ r_x)
+        gt_rows.append(f"{t:.6f} {p_imu[0]} {p_imu[1]} {p_imu[2]} {q[1]} {q[2]} {q[3]} {q[0]}")
+
+    np.savetxt(os.path.join(out_dir, "imu.csv"), np.asarray(imu_rows), delimiter=",")
+    np.savetxt(os.path.join(out_dir, "wheel.csv"), np.asarray(wheel_rows), delimiter=",")
+    with open(os.path.join(out_dir, "frames.csv"), "w") as fp:
+        fp.write("\n".join(frame_rows) + "\n")
+    with open(os.path.join(out_dir, "gt.csv"), "w") as fp:
+        fp.write("\n".join(gt_rows) + "\n")
+    return out_dir
