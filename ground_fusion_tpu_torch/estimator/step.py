@@ -101,7 +101,6 @@ def base_free_mask(cfg: Config, layout: StateLayout) -> np.ndarray:
 def check_supported(cfg: Config) -> None:
     """Raise for configuration switches whose modules are not ported yet."""
     pending = [
-        (cfg.loop.enabled, "loop", "loop closure with the Hamming kernel"),
         (cfg.map.enabled, "map", "dense map and meshing"),
         (cfg.gnss.enabled, "gnss", "GNSS"),
         (cfg.use_line, "use_line", "lines"),

@@ -1,12 +1,12 @@
-"""Full-system orchestration: tracker + estimator.
+"""Full-system orchestration: tracker + estimator + loop closure.
 
-The one-object equivalent of the reference's ROS processes (``vins_node`` and
-its companions — SURVEY §1 L0/L5): images go through the KLT front-end,
-features into the sliding-window estimator. Everything is in-process —
-module-to-module calls replace ROS pub/sub (SURVEY §2 parallelism table).
-Loop closure, the dense map, GPS fusion, lines and the detector of the JAX
-package are not ported yet; a config that turns one of them on raises at
-construction.
+The one-object equivalent of the reference's ROS processes (``vins_node`` +
+``dense_map_node`` — SURVEY §1 L0/L5): images go through the KLT front-end,
+features into the sliding-window estimator, keyframes into the BoW/pose-graph
+loop closure. Everything is in-process — module-to-module calls replace ROS
+pub/sub (SURVEY §2 parallelism table). The dense map, GPS fusion, lines and
+the detector of the JAX package are not ported yet; a config that turns one
+of them on raises at construction.
 
 Run from a dataset directory::
 
@@ -26,6 +26,8 @@ from .cameras.models import make_camera
 from .config import Config
 from .estimator.step import check_supported
 from .frontend.tracker import FeatureTracker
+from .geometry.se3 import pose_apply, pose_compose
+from .global_layers.pose_graph import Keyframe, PoseGraph
 from .pipeline import Estimator
 from .utils import np_quat
 from .utils.outputs import CalibrationDump, DeadReckoningPaths
@@ -58,6 +60,14 @@ class GroundFusionSystem:
 
             self.tracker.set_fisheye_mask(load_mask(cfg.tracker.fisheye_mask_path))
         self.cam = self.tracker.cam
+        # the camera's parameters as host floats, for host-side projections
+        self._cam_host = type(self.cam.params)(*[p.cpu() for p in self.cam.params])
+
+        self.pose_graph = None
+        if cfg.loop.enabled:
+            self.pose_graph = PoseGraph(cfg, cam_focal=cfg.camera.fx, device=self.device)
+            self._kf_index = 0
+            self._opt_edges = 0
 
         self.stats = StageStats()
         self.calib_dump = CalibrationDump(out_dir)
@@ -67,8 +77,9 @@ class GroundFusionSystem:
         # live telemetry registry: the in-process analog of the reference's
         # live topics (visualization.cpp:53-81). Topics: imu_propagate
         # (IMU-rate predicted odometry, pubLatestOdometry), odometry (per
-        # solved frame, pubOdometry), keyframe (pubKeyframe). Publishing is
-        # zero-cost with no subscribers.
+        # solved frame, pubOdometry), keyframe (pubKeyframe), loop_closure (new
+        # verified loop edge), path_update (post-relaxation drift broadcast).
+        # Publishing is zero-cost with no subscribers.
         self._subs: dict[str, list] = {}
 
     # ------------------------------------------------------------- telemetry
@@ -141,6 +152,11 @@ class GroundFusionSystem:
                           is_keyframe=is_kf)
             if is_kf:
                 self._publish("keyframe", t=t, pose=np.asarray(pose))
+            if self.pose_graph is not None and is_kf:
+                # loop-closure registration (the loop half of the JAX
+                # package's _loop_and_map; the dense-map half waits for the
+                # map's port, and cfg.map raises at construction)
+                self._add_loop_keyframe(t, img, pose)
         return pose
 
     def _seed_tracker_predictions(self):
@@ -196,8 +212,7 @@ class GroundFusionSystem:
         if not vis.any():
             return
         # project on the host: the camera's parameters as plain floats
-        cam_host = type(self.cam.params)(*[p.cpu() for p in self.cam.params])
-        px = self.cam.project(cam_host, torch.as_tensor(pc, dtype=torch.float32)).numpy()
+        px = self.cam.project(self._cam_host, torch.as_tensor(pc, dtype=torch.float32)).numpy()
         slot_to_id = {s: fid for fid, s in est.slot_of.items()}
         preds = {}
         for s in np.nonzero(vis)[0]:
@@ -206,11 +221,76 @@ class GroundFusionSystem:
                 preds[fid] = (float(px[s, 0]), float(px[s, 1]))
         self.tracker.set_prediction(preds)
 
+    # ------------------------------------------------------------ keyframes
+
+    def _add_loop_keyframe(self, t, img, pose):
+        """Register the newest window frame as a pose-graph keyframe: its
+        solved landmarks in the world (one batched transform on the device,
+        one fetch), FAST + BRIEF of the image and of the landmarks' pixels,
+        then loop detection, verification and — on a new loop edge — the
+        relaxation. A keyframe that sees fewer than 8 landmarks is skipped."""
+        est = self.estimator
+        tr = est.core.tracks
+        st = est.core.state
+        # the step has already slid the window: the frame it just solved is
+        # slot F-2 after either slide, and slot F-1 waits, empty, for the
+        # next frame (the JAX package reads slot F-1 here, where no landmark
+        # is ever observed, so its live hook registers no keyframe; ROADMAP
+        # queue 3)
+        newest = est.f - 2
+        ml = tr.active.shape[0]
+        # window landmarks in world (from anchor obs + depth), in float64
+        cams = pose_compose(st.poses.double(), st.ex_cam.double()[None, :])
+        anchor = tr.obs[torch.arange(ml, device=tr.obs.device), tr.start_frame, 0:2].double()
+        rays = torch.cat([anchor, torch.ones_like(anchor[:, 0:1])], dim=1)
+        rays = rays / torch.clamp(tr.inv_depth.double(), min=1e-6)[:, None]
+        pts_w = pose_apply(cams[tr.start_frame], rays)
+        seen = tr.active & tr.solve_ok & tr.obs_valid[:, newest]
+        packed = torch.cat([seen.double()[:, None], pts_w, tr.obs[:, newest, 0:2].double()],
+                           dim=1).cpu().numpy()
+        packed = packed[packed[:, 0] > 0.5]
+        if len(packed) < 8:
+            return
+        pts3d, norm2d = packed[:, 1:4], packed[:, 4:6]
+        # normalized-plane ↔ pixel through the dispatched camera model
+        # (keyframe.cpp uses the camodocal camera for both directions), on
+        # the host copy of its parameters
+        rays2 = np.concatenate([norm2d, np.ones((len(norm2d), 1))], -1)
+        win_px = self.cam.project(self._cam_host, torch.as_tensor(rays2, dtype=torch.float32)).numpy()
+
+        pts, okf, desc, win_desc = self.pose_graph.describe(img, win_px)
+        kp_rays = self.cam.lift(self._cam_host, torch.as_tensor(pts)).numpy()
+        kp_norm = kp_rays[:, 0:2] / np.maximum(np.abs(kp_rays[:, 2:3]), 1e-9)
+        kf = Keyframe(
+            index=self._kf_index, t=t, pose=np.asarray(pose),
+            kp=np.concatenate([pts, win_px]),
+            kp_norm=np.concatenate([kp_norm, norm2d]),
+            desc=np.concatenate([desc, win_desc]),
+            kp_ok=np.concatenate([okf, np.ones(len(win_desc), bool)]),
+            win_pts3d=pts3d, win_norm=norm2d, win_desc=win_desc,
+            win_ok=np.ones(len(pts3d), bool),
+        )
+        with self.stats.time("loop"):
+            self.pose_graph.add_keyframe(kf)
+            if len(self.pose_graph.loop_edges) > self._opt_edges:
+                # a new verified loop edge (findConnection success)
+                self._publish("loop_closure", edge=self.pose_graph.loop_edges[-1],
+                              n_keyframes=len(self.pose_graph.kfs))
+                self.pose_graph.optimize()
+                self._opt_edges = len(self.pose_graph.loop_edges)
+                # post-relaxation drift broadcast (updatePath's corrected
+                # path, pose_graph.cpp:674-696)
+                self._publish("path_update", r_drift=np.asarray(self.pose_graph.r_drift),
+                              t_drift=np.asarray(self.pose_graph.t_drift))
+        self._kf_index += 1
+
     # --------------------------------------------------------------- output
 
     def finish(self):
         est = self.estimator
         est.write_tum(os.path.join(self.out_dir, "vio.txt"))
+        if self.pose_graph is not None:
+            self.pose_graph.write_tum(os.path.join(self.out_dir, "loop.txt"))
         self.dead_reckoning.write_tum(
             os.path.join(self.out_dir, "pure_imu.txt"),
             os.path.join(self.out_dir, "pure_wheel.txt"),

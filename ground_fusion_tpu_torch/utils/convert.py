@@ -1,4 +1,5 @@
-"""Carry estimator state between the JAX package and this port as numpy.
+"""Carry estimator and pose-graph state between the JAX package and this
+port as numpy.
 
 Both packages keep their state in NamedTuples with the same field names, so
 a value is carried across by walking the names: a tuple of numpy arrays (or
@@ -19,6 +20,7 @@ from ..estimator.assembly import MargPrior
 from ..estimator.buffers import ImuWindowBuffer, WheelWindowBuffer
 from ..estimator.step import EstimatorCore, StepFlags
 from ..estimator.window import Tracks, WindowState
+from ..global_layers.pose_graph import Keyframe
 from ..preintegration.imu import ImuPreint
 from ..preintegration.wheel import WheelPreint
 
@@ -112,3 +114,58 @@ def to_numpy(x):
 
 def core_to_numpy(core: EstimatorCore) -> dict:
     return to_numpy(core)
+
+
+# pose-graph database tables: (device tables, host arrays, host integers)
+_DB_TABLES = {
+    "KeyframeDatabase": (("hists", "valid"), ("kf_idx", "doc_freq"), ("count", "capacity")),
+    "SparseBowDatabase": (("db_words", "db_w", "valid"), ("kf_idx",), ("count", "capacity")),
+}
+
+
+def _keyframe_to_numpy(kf) -> dict:
+    out = {}
+    for n in Keyframe._fields:
+        v = _field(kf, n)
+        out[n] = v if n in ("index", "t") or v is None else np.array(v)
+    return out
+
+
+def pose_graph_to_numpy(pg) -> dict:
+    """A pose graph (either package's, or such a dict) → a dictionary of
+    host values: the keyframes, the database tables, the loop edges, the
+    earliest looped keyframe and the drift."""
+    db = _field(pg, "db")
+    dev_names, host_names, int_names = _DB_TABLES[type(db).__name__]
+    return {
+        "kfs": [_keyframe_to_numpy(k) for k in _field(pg, "kfs")],
+        "db": {**{n: np.array(to_numpy(_field(db, n))) for n in dev_names + host_names},
+               **{n: int(_field(db, n)) for n in int_names}},
+        "loop_edges": [tuple(np.array(v) if isinstance(v, np.ndarray) else v for v in e)
+                       for e in _field(pg, "loop_edges")],
+        "earliest_loop": _field(pg, "earliest_loop"),
+        "r_drift": np.array(_field(pg, "r_drift"), np.float64),
+        "t_drift": np.array(_field(pg, "t_drift"), np.float64),
+    }
+
+
+def pose_graph_from_numpy(src, pg) -> None:
+    """Load ``src`` (a pose graph of either package, or the dictionary of
+    :func:`pose_graph_to_numpy`) into the port's ``pg`` in place: keyframes,
+    database tables (on ``pg``'s device), loop edges, earliest looped
+    keyframe and drift. Both graphs must use the same kind of database."""
+    state = pose_graph_to_numpy(src) if not isinstance(src, dict) else src
+    pg.kfs = [Keyframe(**k) for k in state["kfs"]]
+    db = pg.db
+    dev_names, host_names, int_names = _DB_TABLES[type(db).__name__]
+    for n in dev_names:
+        setattr(db, n, torch.as_tensor(state["db"][n], dtype=getattr(db, n).dtype,
+                                       device=getattr(db, n).device))
+    for n in host_names:
+        setattr(db, n, np.array(state["db"][n], dtype=getattr(db, n).dtype))
+    for n in int_names:
+        setattr(db, n, int(state["db"][n]))
+    pg.loop_edges = list(state["loop_edges"])
+    pg.earliest_loop = state["earliest_loop"]
+    pg.r_drift = np.array(state["r_drift"], np.float64)
+    pg.t_drift = np.array(state["t_drift"], np.float64)

@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,7 +51,8 @@ def _no_gpu():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "Estimator", "make_window_step",
-                                   "FeatureTracker", "GroundFusionSystem", "cli"])
+                                   "FeatureTracker", "GroundFusionSystem", "PoseGraph",
+                                   "KeyframeDatabase", "DBoW2Vocabulary", "load_binary", "cli"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     """No 'cuda if available else cpu': with no device argument every entry
     point resolves to the GPU, and raises on a machine that has none."""
@@ -59,16 +61,28 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     from ground_fusion_tpu_torch.cameras.models import PinholeParams
     from ground_fusion_tpu_torch.estimator.step import make_window_step
     from ground_fusion_tpu_torch.frontend.tracker import FeatureTracker
+    from ground_fusion_tpu_torch.global_layers.bow import KeyframeDatabase
+    from ground_fusion_tpu_torch.global_layers.dbow_vocab import DBoW2Vocabulary
+    from ground_fusion_tpu_torch.global_layers.pose_graph import PoseGraph
     from ground_fusion_tpu_torch.pipeline import Estimator
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = Config()
+    # a one-level vocabulary: the root and its two leaves
+    tree = (2, 1, np.array([[1, 2], [-1, -1], [-1, -1]]), np.zeros((3, 8), np.uint32),
+            np.array([-1, 0, 1]), np.ones(3))
+    vocab_path = str(tmp_path / "vocab.bin")
+    DBoW2Vocabulary.save_binary(vocab_path, *tree)
     calls = {
         "resolve_device": lambda: gft.resolve_device(None),
         "Estimator": lambda: Estimator(cfg),
         "make_window_step": lambda: make_window_step(cfg),
         "FeatureTracker": lambda: FeatureTracker(PinholeParams.make(300.0, 300.0, 160.0, 120.0)),
         "GroundFusionSystem": lambda: GroundFusionSystem(cfg, str(tmp_path)),
+        "PoseGraph": lambda: PoseGraph(cfg),
+        "KeyframeDatabase": lambda: KeyframeDatabase(capacity=4, n_words=16),
+        "DBoW2Vocabulary": lambda: DBoW2Vocabulary(*tree, n_words=2),
+        "load_binary": lambda: DBoW2Vocabulary.load_binary(vocab_path),
     }
     if entry == "cli":
         r = subprocess.run(
@@ -104,14 +118,14 @@ def test_lk_level_on_cpu_uses_the_plain_version_and_counts_no_launch():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("switch", ["loop", "map", "gnss", "use_line", "use_yolo", "burst_chunk"])
+@pytest.mark.parametrize("switch", ["map", "gnss", "use_line", "use_yolo", "burst_chunk"])
 def test_unported_switches_raise_by_name(switch, tmp_path):
     import dataclasses
 
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = Config()
-    if switch in ("loop", "map", "gnss"):
+    if switch in ("map", "gnss"):
         cfg = dataclasses.replace(cfg, **{switch: dataclasses.replace(getattr(cfg, switch), enabled=True)})
     elif switch == "burst_chunk":
         cfg = dataclasses.replace(cfg, burst_chunk=8)

@@ -31,7 +31,10 @@ import torch
 
 torch.set_num_threads(1)      # small tensors; leave the cores to the other test workers
 
+from ground_fusion_tpu.cameras.models import make_camera as j_make_camera
 from ground_fusion_tpu.config import Config as JConfig
+from ground_fusion_tpu.geometry.se3 import pose_apply as j_pose_apply
+from ground_fusion_tpu.geometry.se3 import pose_compose as j_pose_compose
 from ground_fusion_tpu.pipeline import Estimator as JEstimator
 from ground_fusion_tpu.system import GroundFusionSystem as JSystem
 from ground_fusion_tpu_torch.config import Config as TConfig
@@ -105,6 +108,85 @@ def test_port_system_on_rendered_sequence(tmp_path):
     assert np.isfinite(est).all()
     assert ate_rmse(est, gt_i) < 0.005
     assert os.path.exists(ts.finish())
+
+
+def _reference_window_keyframe(window, cam):
+    """The JAX package's keyframe payload for one recorded window: its
+    ``pose_compose``/``pose_apply`` for the world landmarks, one landmark at
+    a time as its hook does, and its camera's ``space_to_plane`` for the
+    window pixels, read at slot F-2 (the frame the step has just solved)."""
+    tr, poses, ex_cam, f = window
+    newest = f - 2
+    cams = j_pose_compose(jnp.asarray(poses, jnp.float64), jnp.asarray(ex_cam, jnp.float64)[None, :])
+    sf, obs, inv_d = tr["start_frame"], tr["obs"], tr["inv_depth"]
+    sel = np.nonzero(tr["active"] & tr["solve_ok"] & tr["obs_valid"][:, newest])[0]
+    pts3d = np.stack([np.asarray(j_pose_apply(
+        cams[sf[l]], jnp.asarray(np.array([obs[l, sf[l], 0], obs[l, sf[l], 1], 1.0])
+                                 / max(inv_d[l], 1e-6)))) for l in sel])
+    norm2d = obs[sel, newest, 0:2]
+    rays = np.concatenate([norm2d, np.ones((len(sel), 1))], -1)
+    win_px = np.asarray(cam.space_to_plane(jnp.asarray(rays, jnp.float32)))
+    return pts3d, norm2d, win_px
+
+
+def test_port_system_with_loop_closure_writes_loop_txt(tmp_path):
+    """``loop.enabled`` on the CPU: the system builds a pose graph, every
+    solved keyframe with enough landmarks is described and registered in
+    it, ``loop.txt`` holds one line per registered keyframe, and the drift
+    correction is the identity while no loop has closed. ``map`` still
+    raises. Each keyframe's window payload — world landmarks, normalized
+    observations, window pixels, and the FAST points' normalized
+    coordinates — is held against the JAX package's geometry and camera on
+    the same window: 1e-9 m and 1e-12 in float64, 1e-4 px and 1e-6 through
+    the float32 camera."""
+    seq = Sequence.load(_render(tmp_path))
+    cfg = _system_cfg(TConfig)
+    cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, enabled=True))
+    with pytest.raises(NotImplementedError, match="'map'"):
+        TSystem(dataclasses.replace(cfg, map=dataclasses.replace(cfg.map, enabled=True)),
+                str(tmp_path / "no"), device="cpu")
+    ts = TSystem(cfg, str(tmp_path / "out"), device="cpu")
+    pg = ts.pose_graph
+    assert pg is not None and pg.device.type == "cpu" and pg.db.hists.device.type == "cpu"
+    windows = []
+    add_keyframe = pg.add_keyframe
+
+    def recording_add_keyframe(kf, *args, **kw):
+        core = ts.estimator.core
+        tr = {k: v.numpy().copy() for k, v in core.tracks._asdict().items()}
+        windows.append((tr, core.state.poses.double().numpy(), core.state.ex_cam.double().numpy(),
+                        ts.estimator.f))
+        return add_keyframe(kf, *args, **kw)
+
+    pg.add_keyframe = recording_add_keyframe
+    for _ in _feed(seq, [ts]):
+        pass
+    n_kf = sum(ts.estimator.keyframe_flags)
+    assert 1 <= len(pg.kfs) <= n_kf and pg.describes == {"cpu": len(pg.kfs)}
+    assert len(windows) == len(pg.kfs)
+    jcam = j_make_camera(cfg.camera.model, cfg.camera.fx, cfg.camera.fy, cfg.camera.cx,
+                         cfg.camera.cy, cfg.camera.distortion)
+    for kf, window in zip(pg.kfs, windows):
+        pts3d, norm2d, win_px = _reference_window_keyframe(window, jcam)
+        m = len(pts3d)
+        assert m >= 8 and len(kf.win_pts3d) == len(kf.win_norm) == m
+        np.testing.assert_allclose(kf.win_pts3d, pts3d, atol=1e-9, rtol=0)
+        np.testing.assert_allclose(kf.win_norm, norm2d, atol=1e-12, rtol=0)
+        np.testing.assert_allclose(kf.kp[-m:], win_px, atol=1e-4, rtol=0)
+        kp_rays = np.asarray(jcam.lift_projective(jnp.asarray(kf.kp[:-m], jnp.float32)))
+        np.testing.assert_allclose(kf.kp_norm[:-m], kp_rays[:, 0:2] / kp_rays[:, 2:3],
+                                   atol=1e-6, rtol=0)
+    kf = pg.kfs[-1]
+    assert kf.desc.dtype == np.uint32 and len(kf.desc) == len(kf.kp_ok) == len(kf.kp)
+    assert np.isfinite(kf.win_pts3d).all()
+    # the landmarks lie in front of the keyframe's camera, near the rendered depths
+    assert np.linalg.norm(kf.win_pts3d - kf.pose[0:3], axis=1).max() < 10.0
+    assert not pg.loop_edges and ts._kf_index == len(pg.kfs)
+    assert np.array_equal(pg.r_drift, np.eye(3)) and not pg.t_drift.any()
+    ts.finish()
+    loop = np.loadtxt(tmp_path / "out" / "loop.txt", ndmin=2)
+    assert loop.shape == (len(pg.kfs), 8) and np.isfinite(loop).all()
+    np.testing.assert_allclose(loop[:, 1:4], [k.pose[0:3] for k in pg.kfs], atol=1e-6)
 
 
 @pytest.fixture(scope="module")
