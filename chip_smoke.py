@@ -10,20 +10,28 @@ Phases (any failure ends the run with a non-zero exit code):
 2. build    — build every CUDA source of the port (``lk_level``, ``hamming``)
               with nvcc (one process per source, started together) and print
               the seconds it took.
-3. kernels  — call each kernel's wrapper on GPU tensors at the shapes the main
-              path gives it and hold the result against its plain PyTorch
-              version on the same inputs (``lk_level`` to 1e-3 px,
-              ``hamming_matrix`` exactly, identity 0 and complement 256);
-              time kernel, plain version and, for Hamming, ``torch.cdist``
-              on bit planes with CUDA events; print each kernel's bound.
+3. kernels  — call each kernel entry point's wrapper on GPU tensors at the
+              shapes the main path gives it and hold the result against its
+              plain PyTorch version on the same inputs: ``lk_level`` (the LK
+              kernel with ``levels = 1``) to 1e-3 px at the three level
+              shapes; ``lk_track`` (the whole bidirectional 3-level track in
+              one launch) against the plain chain to 1e-3 px, its ``ok``
+              mask equal away from the gates, timed in turns against the
+              six-launch control flow of the previous design and the plain
+              chain; ``hamming_matrix`` exactly, identity 0 and complement
+              256; ``hamming_match`` (the fused masked match) exactly, also
+              with ties and masks. Times per call with CUDA events, device
+              time per launch under ``torch.profiler``, each bound, and for
+              Hamming ``torch.cdist`` on bit planes.
 4. main     — render a 40-frame 640x480 sequence with the port's simulator at
               the intrinsics and sensor mounts of ``configs/groundchallenge.yaml``
               (a vehicle that stands, then drives off along a circle, seen at
               30 frames a second) and run it through
               ``ground_fusion_tpu_torch.__main__.run`` on the GPU with that
               config plus ``loop: {enabled: true}``; check the trajectory, the
-              device of the state, the launch counters, the keyframes of the
-              pose graph and ``loop.txt``; print per-stage times.
+              device of the state, the launch counters (one ``lk_track``
+              launch per tracked frame), the keyframes of the pose graph and
+              ``loop.txt``; print per-stage times.
 5. revisit  — drive ``PoseGraph`` (``describe``, ``add_keyframe``,
               ``optimize``; 4-DoF and 6-DoF) through 65 keyframes of 640x480
               images around a drifting loop that revisits five places, and
@@ -31,8 +39,8 @@ Phases (any failure ends the run with a non-zero exit code):
               hook (each seated in the estimator's window as its step leaves
               it): loop edges form, in the system too, which publishes them;
               the hook's world landmarks are the drive's; every descriptor
-              match launched the Hamming kernel; the end error falls; print
-              ms per call.
+              match launched the fused match kernel once; the end error
+              falls; print ms per call.
 6. solvers  — on a 300-keyframe graph (past ``DENSE_NODE_LIMIT``, so
               ``optimize`` takes the matrix-free PCG solvers) hold the card's
               PCG result against the card's dense solve and the CPU's PCG
@@ -40,8 +48,10 @@ Phases (any failure ends the run with a non-zero exit code):
               DBoW2 vocabulary written with ``save_binary`` and query its
               database on the card and on the CPU: the same words, weights
               and answers.
-Then the ``{"kernels": [...]}`` line (launches counted on the paths of phases
-4 and 5), the card's line, and the last line ``{"ok": true, "device": {...}}``.
+Then the card's line, the ``{"kernels": [...]}`` line (one entry per kernel
+entry point: ``lk_level``, ``lk_track``, ``hamming_matrix``,
+``hamming_match``; launches counted on the paths of phases 4 and 5), and the
+last line ``{"ok": true, "device": {...}}``.
 
 The script imports only the port (never JAX or the JAX package), needs no
 network, and starts no process that outlives it.
@@ -71,8 +81,11 @@ N_SM = 132
 N_FEATURES = 150
 LEVEL_SHAPES = [(480, 640), (240, 320), (120, 160)]   # (h, w) of the 3 pyramid levels
 HALF, ITERS, MIN_EIG = 10, 10, 1e-4
+TRACK_LEVELS, FB_THRESH = 3, 0.5     # the main path's pyramid and round-trip gate
 PTS_TOL_PX = 1e-3        # 441-term f32 sums taken in another order than the plain version
 GATE_REL = 1e-3          # |eig_min/n - min_eig| / min_eig below which a mask flip is rounding
+EDGE_TOL_PX = 1e-4       # a round trip or a point this close to its threshold may flip by rounding
+RECORDED_ATE_M = 0.00337     # phase 4's ATE recorded in PERF.md, printed beside this run's
 N_FRAMES = 40
 # The smoke sequence: the vehicle stands for half a second (so the stationary
 # initializer is right to take it for standing), then speeds up to 0.45 m/s on
@@ -88,7 +101,8 @@ ATE_BOUND_M = 0.1
 ATE_BOUND_OF_PATH = 0.05
 MIN_TRACKED = 40         # features of the last frame followed over 5 frames or more
 MIN_SOLVED_LANDMARKS = 40    # landmarks of the last window with a solved depth
-# (Ka, Kb) of hamming_matrix: loop closure's shapes (~100 window descriptors of
+MATCH_THRESH = 80        # the default LoopConfig's Hamming gate
+# (Ka, Kb) of hamming_matrix and hamming_match: loop closure's shapes (~100 window descriptors of
 # the current keyframe against the old one's 500 FAST + window descriptors, and
 # the largest, 128 against 628), a square one, and ragged edges
 HAMMING_SHAPES = [(100, 600), (128, 628), (500, 500), (1, 1), (37, 211), (129, 257)]
@@ -225,20 +239,30 @@ def _fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.5f} ms"
 
 
-def _lk_bound_ms(h, w, n, n_valid, n_good):
-    """Least time the card could take for this call's work: the larger of
-    bytes moved once over the memory rate and operations over the f32 rate.
-    The work depends on the data: an invalid feature costs nothing, a valid
-    one the template and the structure tensor, a good one the iterations too."""
+def _bound_ms(bytes_moved, ops, ops_per_s):
+    """Least time the card could take: the larger of the bytes moved once over
+    the memory rate and the operations over their peak rate, and which one."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _lk_flops(n_valid, n_good):
+    """Operations of one LK level. The work depends on the data: an invalid
+    feature costs nothing, a valid one the template and the structure
+    tensor, a good one the iterations too."""
     p, pb = 2 * HALF + 1, 2 * HALF + 3
-    bytes_moved = 2 * h * w * 4 + 2 * n * 8 + n + n * 8 + n
     tap = 14                                  # one bilinear tap: weights + 4 multiply-adds
     flop_template = pb * pb * tap + p * p * 10
     flop_iter = p * p * (tap + 5) + 12
-    flops = n_valid * flop_template + n_good * ITERS * flop_iter
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return n_valid * flop_template + n_good * ITERS * flop_iter
+
+
+def _lk_bound_ms(h, w, n, n_valid, n_good):
+    """Bound of one ``lk_level`` call: both images and the points read once,
+    points, ok and re-staging counts written once; the level's operations."""
+    bytes_moved = 2 * h * w * 4 + 2 * n * 8 + n + n * 8 + n + n * 4
+    return _bound_ms(bytes_moved, _lk_flops(n_valid, n_good), F32_FLOP_PER_S)
 
 
 def phase_kernels(torch):
@@ -295,7 +319,7 @@ def phase_kernels(torch):
         check(shift_err < 0.1, f"lk_level {h}x{w}: median shift error {shift_err} px")
 
         ms = _time_ms(torch, run_kernel, reps=60)
-        device_ms = _device_ms(torch, run_kernel, "lk_level_kernel")
+        device_ms = _device_ms(torch, run_kernel, "lk_track_kernel")
         plain_ms = _time_ms(torch, run_plain, reps=10, warmup=2)
         n_valid, n_good = int(valid.sum()), int(k_ok.sum())
         bound_ms, bound_by = _lk_bound_ms(h, w, N_FEATURES, n_valid, n_good)
@@ -323,7 +347,151 @@ def phase_kernels(torch):
         "launches": 0, "max_abs_err": worst_err,
         "ms": top["ms"], "device_ms": top["device_ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None,
+        "mode": "the LK kernel with levels = 1, forward only, no final masks",
         "tolerance_px": PTS_TOL_PX, "shapes": per_shape,
+    }
+
+
+def _track_inputs(np, torch, dev):
+    """The main path's track at 480x640: the texture and its shifted copy as
+    3-level pyramids, and the packed [N,5] table the tracker uploads (previous
+    xy, seed xy, valid), handed over as the tracker hands it: strided views."""
+    from ground_fusion_tpu_torch.frontend.klt import build_pyramid
+
+    h, w = LEVEL_SHAPES[0]
+    tex, cur, pts, seeds, valid, interior = _level_inputs(np, h, w, seed=7)
+    table = np.concatenate([pts, seeds, valid[:, None].astype(np.float32)], axis=1)
+    tab = torch.as_tensor(table).to(dev)
+    prev_pyr = build_pyramid(torch.as_tensor(tex).to(dev), TRACK_LEVELS)
+    cur_pyr = build_pyramid(torch.as_tensor(cur).to(dev), TRACK_LEVELS)
+    args = (prev_pyr, cur_pyr, tab[:, 0:2], tab[:, 2:4], tab[:, 4] > 0.5, TRACK_LEVELS, HALF,
+            ITERS, FB_THRESH)
+    return args, torch.as_tensor(interior).to(dev)
+
+
+def _plain_track_traced(torch, klt, args):
+    """The plain chain behind ``lk_track``, level by level through
+    ``lk_level_reference``, recording per level call the features that enter
+    and pass, and which features sit within rounding of an eigenvalue gate.
+    Returns (fwd, ok, back, near_gate, per-level (h, w, n_valid, n_good))."""
+    prev_pyr, cur_pyr, pts_prev, pts_seed, valid, levels, half, iters, fb = args
+    near_gate = torch.zeros(valid.shape, dtype=torch.bool, device=valid.device)
+    levels_seen = []
+
+    def recording(prev, cur, pp, pts, ok, half, iters, min_eig):
+        nonlocal near_gate
+        out = klt.lk_level_reference(prev, cur, pp, pts, ok, half, iters, min_eig)
+        eig = klt.lk_eig_min(prev, pp, half)
+        near_gate = near_gate | (ok & ((eig - min_eig).abs() <= GATE_REL * min_eig))
+        levels_seen.append((*prev.shape, int(ok.sum()), int(out[1].sum())))
+        return out
+
+    fwd, ok_f = klt.track_pyramidal_chain(recording, prev_pyr, cur_pyr, pts_prev, pts_seed, valid,
+                                          levels, half, iters, MIN_EIG)
+    back, ok_b = klt.track_pyramidal_chain(recording, cur_pyr, prev_pyr, fwd, pts_prev, ok_f,
+                                           levels, half, iters, MIN_EIG)
+    ok = ok_f & ok_b & (torch.linalg.norm(back - pts_prev, dim=-1) <= fb)
+    return fwd, ok, back, near_gate, levels_seen
+
+
+def _near_edges(torch, args, fwd, back):
+    """Features whose round trip lies within EDGE_TOL_PX of the gate, or whose
+    forward or backward point lies within it of the ``inb`` border."""
+    prev_pyr, pts_prev, fb = args[0], args[2], args[8]
+    h, w = prev_pyr[0].shape
+    near = ((torch.linalg.norm(back - pts_prev, dim=-1) - fb).abs() <= EDGE_TOL_PX)
+    for p in (fwd, back):
+        for c, lo, hi in ((0, 1.0, w - 2.0), (1, 1.0, h - 2.0)):
+            near |= ((p[:, c] - lo).abs() <= EDGE_TOL_PX) | ((p[:, c] - hi).abs() <= EDGE_TOL_PX)
+    return near
+
+
+def phase_track(torch):
+    """``lk_track`` at the main path's shape against the plain chain, and in
+    turns against the previous design's control flow (one ``lk_level``
+    launch per level and direction, the tensor operations between them)."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.ops.cuda import build, klt
+
+    dev = torch.device("cuda")
+    args, interior = _track_inputs(np, torch, dev)
+    n = args[2].shape[0]
+    k_fwd, k_ok = klt.lk_track(*args)
+    torch.cuda.synchronize()
+    restages = int(klt.LAST_RESTAGES.sum())
+    r_fwd, r_ok, r_back, near_gate, levels_seen = _plain_track_traced(torch, klt, args)
+    torch.cuda.synchronize()
+    p_fwd, p_ok = klt.lk_track_reference(*args)
+    check(torch.equal(p_fwd, r_fwd) and torch.equal(p_ok, r_ok),
+          "lk_track: the traced plain chain is not lk_track_reference")
+    check(k_fwd.is_cuda and k_ok.dtype == torch.bool and tuple(k_fwd.shape) == (n, 2),
+          "lk_track: wrong output type or shape")
+    check(bool(torch.isfinite(k_fwd).all()), "lk_track: non-finite points")
+
+    excused = near_gate | _near_edges(torch, args, r_fwd, r_back)
+    differ = k_ok != r_ok
+    check(not bool((differ & ~excused).any()),
+          f"lk_track: ok masks differ away from the gates at {torch.nonzero(differ & ~excused).tolist()}")
+    n_flip = int(differ.sum())
+    check(n_flip <= n // 100, f"lk_track: {n_flip} mask flips")
+    both = k_ok & r_ok
+    check(int(both.sum()) >= n // 3, f"lk_track: only {int(both.sum())} features ok")
+    err = float((k_fwd - r_fwd).abs()[both].max())
+    check(err <= PTS_TOL_PX, f"lk_track: max |kernel - plain| = {err} px > {PTS_TOL_PX}")
+    sel = both & interior
+    shift_err = float(torch.linalg.norm(k_fwd[sel] - (args[2][sel] + torch.tensor([-2.0, 3.0], device=dev)),
+                                        dim=1).median())
+    check(shift_err < 0.1, f"lk_track: median shift error {shift_err} px")
+
+    def run_track():
+        return klt.lk_track(*args)
+
+    def run_levelwise():
+        return klt.track_bidirectional_chain(klt.lk_level, *args, MIN_EIG)
+
+    def run_plain():
+        return klt.lk_track_reference(*args)
+
+    lw_fwd, lw_ok = run_levelwise()
+    check(torch.equal(lw_ok, k_ok) or int((lw_ok != k_ok).sum()) <= n // 100,
+          "lk_track: the six-launch control flow disagrees with the one launch")
+    times = {"track": [], "levelwise": [], "plain": []}
+    for _ in range(3):                        # in turns, in one call, on one card
+        times["track"].append(_time_ms_run(torch, run_track, 50))
+        times["levelwise"].append(_time_ms_run(torch, run_levelwise, 20))
+        times["plain"].append(_time_ms_run(torch, run_plain, 2, repeats=3, warmup=1))
+    ms, lw_ms, plain_ms = (sorted(times[k])[1] for k in ("track", "levelwise", "plain"))
+    device_ms = _device_ms(torch, run_track, "lk_track_kernel")
+    lw_device_ms = _device_ms(torch, run_levelwise, "lk_track_kernel")   # per level launch
+    # the same launch with no iteration: window staging, templates, gates and the launch
+    no_iter_ms = _device_ms(torch, lambda: klt.lk_track(*args[:7], 0, args[8]), "lk_track_kernel")
+    iter_us = None if None in (device_ms, no_iter_ms) else \
+        (device_ms - no_iter_ms) / (2 * TRACK_LEVELS * ITERS) * 1e3
+
+    prev_pyr = args[0]
+    bytes_moved = 2 * sum(t.numel() * 4 for t in prev_pyr) + n * (2 * 8 + 1) + n * (8 + 1 + 4)
+    flops = sum(_lk_flops(nv, ng) for _, _, nv, ng in levels_seen)
+    bound_ms, bound_by = _bound_ms(bytes_moved, flops, F32_FLOP_PER_S)
+    print(f"lk_track {args[0][0].shape[0]}x{args[0][0].shape[1]}, {TRACK_LEVELS} levels, both directions, {n} features: ok {int(k_ok.sum())}"
+          f"/{n} (plain {int(r_ok.sum())}), flips {n_flip}, max err {err:.2e} px, shift err "
+          f"{shift_err:.2e} px, window re-stagings {restages}; one launch {ms:.5f} ms per call "
+          f"(device alone {_fmt_ms(device_ms)}; with 0 iterations {_fmt_ms(no_iter_ms)}, so "
+          f"{iter_us if iter_us is None else round(iter_us, 4)} us an iteration), six-launch "
+          f"control flow {lw_ms:.5f} ms per call "
+          f"(device {_fmt_ms(lw_device_ms)} per level launch), plain chain {plain_ms:.3f} ms; "
+          f"bound {bound_ms:.6f} ms ({bound_by}); rounds {times}", flush=True)
+    return {
+        "name": "lk_track", "route": "cuda",
+        "source": os.path.relpath(build.source_path(klt.KERNEL_NAME), ROOT),
+        "replaces": "ground_fusion_tpu/ops/pallas/klt.py:177",
+        "launches": 0, "max_abs_err": err,
+        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "levelwise_ms": lw_ms, "levelwise_device_ms_per_launch": lw_device_ms,
+        "device_ms_no_iterations": no_iter_ms, "us_per_iteration": iter_us,
+        "mask_flips": n_flip, "restages": restages, "shift_err_px": shift_err,
+        "tolerance_px": PTS_TOL_PX, "shape": [*LEVEL_SHAPES[0]], "levels": TRACK_LEVELS, "n": n,
     }
 
 
@@ -378,12 +546,41 @@ def _sm_clock_mhz() -> float:
 
 
 def _hamming_bound_ms(ka, kb, popc_per_s):
-    """Least time for one call: the larger of its bytes (each descriptor read
-    once, each distance written once) over the memory rate and its Ka·Kb·8
-    popcounts over the card's popcount rate."""
-    t_bytes = ((ka + kb) * 32 + ka * kb * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = ka * kb * 8 / popc_per_s * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Least time for one ``hamming_matrix`` call: the larger of its bytes
+    (each descriptor read once, each distance written once) over the memory
+    rate and its Ka·Kb·8 popcounts over the card's popcount rate."""
+    return _bound_ms((ka + kb) * 32 + ka * kb * 4, ka * kb * 8, popc_per_s)
+
+
+def _match_bound_ms(ka, kb, popc_per_s):
+    """Least time for one ``hamming_match`` call: descriptors and masks read
+    once, an int64 index and a flag written per row; Ka·Kb·8 popcounts."""
+    return _bound_ms((ka + kb) * 33 + ka * 9, ka * kb * 8, popc_per_s)
+
+
+def _match_inputs(np, ka, kb, seed, case="random"):
+    """Current descriptors that are old ones with 0-120 of their 256 bits
+    flipped (so some pass the gate of 80, some do not), some current ones
+    masked. ``ties``: the old set repeats Kb/5 descriptors five times each;
+    ``mask``: every third old descriptor and those of the first quarter of
+    the current rows are masked; ``all_masked``: every old one is."""
+    rng = np.random.default_rng(seed)
+    old = rng.integers(0, 2**32, (kb, 8), dtype=np.uint32)
+    if case == "ties":
+        old = np.repeat(old[: max(kb // 5, 1)], 5, axis=0)[:kb][rng.permutation(kb)]
+    src = rng.integers(0, kb, ka)
+    bits = np.unpackbits(old[src].view(np.uint8), axis=1)
+    for r, k in enumerate(rng.integers(0, 121, ka)):
+        bits[r, rng.choice(256, k, replace=False)] ^= 1
+    cur = np.packbits(bits, axis=1).view(np.uint32)
+    ok_cur = rng.random(ka) > 0.1
+    ok_old = np.ones(kb, bool)
+    if case == "mask":
+        ok_old[::3] = False
+        ok_old[src[: max(ka // 4, 1)]] = False
+    elif case == "all_masked":
+        ok_old[:] = False
+    return cur.view(np.int32), ok_cur, old.view(np.int32), ok_old
 
 
 def phase_hamming(torch):
@@ -422,7 +619,7 @@ def phase_hamming(torch):
         check(torch.equal(torch.cdist(ua, ub, p=0).to(torch.int32), want),
               f"hamming_matrix {ka}x{kb}: cdist(p=0) on bit planes disagrees")
         ms = _time_ms_run(torch, lambda: hamming.hamming_matrix(da, db), 200)
-        device_ms = _device_ms(torch, lambda: hamming.hamming_matrix(da, db), "hamming_kernel")
+        device_ms = _device_ms(torch, lambda: hamming.hamming_matrix(da, db), "hamming_matrix_kernel")
         plain_ms = _time_ms_run(torch, lambda: hamming.hamming_matrix_reference(da, db), 10)
         library_ms = _time_ms_run(torch, lambda: torch.cdist(ua, ub, p=0), 50)
         bound_ms, bound_by = _hamming_bound_ms(ka, kb, popc_per_s)
@@ -435,7 +632,7 @@ def phase_hamming(torch):
               f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
 
     top = per_shape[0]
-    return {
+    matrix = {
         "name": "hamming_matrix", "route": "cuda",
         "source": os.path.relpath(build.source_path(hamming.KERNEL_NAME), ROOT),
         "replaces": "ground_fusion_tpu/ops/pallas/hamming.py:66",
@@ -444,6 +641,91 @@ def phase_hamming(torch):
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"],
         "library": "torch.cdist(p=0) on float32 bit planes unpacked beforehand",
         "tolerance": "exact", "popcounts_per_s": popc_per_s, "shapes": per_shape,
+    }
+    return matrix, phase_match(torch, popc_per_s)
+
+
+def five_pass_match_brief(torch, hamming, desc_cur, ok_cur, desc_old, ok_old, thresh):
+    """``match_brief`` before the fused kernel: the distance-matrix kernel,
+    then four tensor passes over the [Kc,Kb] matrix (mask, argmin, gather,
+    gate). Timed beside the fused kernel that replaced it."""
+    d = hamming.hamming_matrix(desc_cur, desc_old)
+    d = torch.where(ok_old[None, :], d, torch.full_like(d, hamming.MASKED))
+    idx = torch.argmin(d, dim=1)
+    best = torch.gather(d, 1, idx[:, None])[:, 0]
+    return idx, ok_cur & (best < thresh)
+
+
+def phase_match(torch, popc_per_s):
+    """``hamming_match`` exactly against ``match_brief_reference`` at the six
+    shapes and, at 100x600, with ties, masks and an all-masked old set; timed
+    per call in turns with ``torch.cdist(p=0)`` on bit planes (the distance
+    half alone) and with the five-pass flow it replaced (matrix kernel + four
+    passes)."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.ops.cuda import build, hamming
+
+    dev = torch.device("cuda")
+    cases = [(ka, kb, "random") for ka, kb in HAMMING_SHAPES]
+    cases += [(100, 600, "ties"), (100, 600, "mask"), (100, 600, "all_masked")]
+    per_shape = []
+    for si, (ka, kb, case) in enumerate(cases):
+        cur, ok_cur, old, ok_old = (torch.as_tensor(x).to(dev)
+                                    for x in _match_inputs(np, ka, kb, 300 + si, case))
+        args = (cur, ok_cur, old, ok_old, MATCH_THRESH)
+        idx, matched = hamming.hamming_match(*args)
+        torch.cuda.synchronize()
+        want_idx, want_m = hamming.match_brief_reference(*args)
+        check(idx.is_cuda and idx.dtype == torch.int64 and matched.dtype == torch.bool
+              and tuple(idx.shape) == (ka,) and tuple(matched.shape) == (ka,),
+              "hamming_match: wrong output type or shape")
+        n_idx, n_m = int((idx != want_idx).sum()), int((matched != want_m).sum())
+        check(n_idx == 0 and n_m == 0,
+              f"hamming_match {ka}x{kb} {case}: {n_idx} indices and {n_m} flags differ from the plain version")
+        if case == "all_masked":
+            check(not bool(matched.any()) and not bool(idx.any()),
+                  "hamming_match: an all-masked old set did not give index 0 and no match")
+        if case != "random":
+            print(f"hamming_match {ka}x{kb} {case}: equal to the plain version "
+                  f"({int(matched.sum())} matches)", flush=True)
+            continue
+
+        check(all(torch.equal(a, b) for a, b in zip(five_pass_match_brief(torch, hamming, *args),
+                                                      (want_idx, want_m))),
+              f"hamming_match {ka}x{kb}: the five-pass flow disagrees")
+        ua, ub = hamming.unpack_bits(cur), hamming.unpack_bits(old)
+        times = {"kernel": [], "library": [], "five_pass": []}
+        for _ in range(3):                    # in turns, in one call, on one card
+            times["kernel"].append(_time_ms_run(torch, lambda: hamming.hamming_match(*args), 200))
+            times["library"].append(_time_ms_run(torch, lambda: torch.cdist(ua, ub, p=0), 50))
+            times["five_pass"].append(
+                _time_ms_run(torch, lambda: five_pass_match_brief(torch, hamming, *args), 50))
+        ms, library_ms, five_pass_ms = (sorted(times[k])[1] for k in ("kernel", "library", "five_pass"))
+        device_ms = _device_ms(torch, lambda: hamming.hamming_match(*args), "hamming_match_kernel")
+        plain_ms = _time_ms_run(torch, lambda: hamming.match_brief_reference(*args), 10)
+        bound_ms, bound_by = _match_bound_ms(ka, kb, popc_per_s)
+        per_shape.append({"shape": [ka, kb], "matches": int(matched.sum()), "max_abs_err": 0,
+                          "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                          "library_ms": library_ms, "five_pass_ms": five_pass_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by})
+        print(f"hamming_match {ka}x{kb}: equal to the plain version ({int(matched.sum())} matches); "
+              f"kernel {ms:.5f} ms per call (device alone {_fmt_ms(device_ms)}), five-pass flow "
+              f"{five_pass_ms:.5f} ms, plain {plain_ms:.4f} ms, library (cdist p=0 on bit planes, distances "
+              f"only) {library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}); rounds {times}",
+              flush=True)
+
+    top = per_shape[0]
+    return {
+        "name": "hamming_match", "route": "cuda",
+        "source": os.path.relpath(build.source_path(hamming.KERNEL_NAME), ROOT),
+        "replaces": "ground_fusion_tpu/ops/pallas/hamming.py:66",
+        "launches": 0, "max_abs_err": 0,
+        "ms": top["ms"], "device_ms": top["device_ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+        "five_pass_ms": top["five_pass_ms"],
+        "library": "torch.cdist(p=0) on float32 bit planes unpacked beforehand (distances only)",
+        "tolerance": "exact", "shapes": per_shape,
     }
 
 
@@ -490,6 +772,21 @@ def _loop_config(work_dir: str) -> str:
     return path
 
 
+def _zero_counters(klt, hamming):
+    klt.LAUNCHES = klt.REFERENCE_CALLS = klt.TRACK_LAUNCHES = klt.TRACK_REFERENCE_CALLS = 0
+    hamming.LAUNCHES = hamming.REFERENCE_CALLS = 0
+    hamming.MATCH_LAUNCHES = hamming.MATCH_REFERENCE_CALLS = 0
+
+
+def _read_counters(klt, hamming):
+    """Launches of each kernel entry point, and runs of any plain version
+    through a wrapper, since the counters were last set to 0."""
+    return {"lk_track": klt.TRACK_LAUNCHES, "lk_level": klt.LAUNCHES,
+            "hamming_match": hamming.MATCH_LAUNCHES, "hamming_matrix": hamming.LAUNCHES,
+            "plain": klt.REFERENCE_CALLS + klt.TRACK_REFERENCE_CALLS + hamming.REFERENCE_CALLS
+            + hamming.MATCH_REFERENCE_CALLS}
+
+
 def phase_main(torch, work_dir):
     import numpy as np
 
@@ -503,19 +800,17 @@ def phase_main(torch, work_dir):
     render_smoke_sequence(seq)
     print(f"rendered {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    klt.LAUNCHES = klt.REFERENCE_CALLS = 0
-    hamming.LAUNCHES = hamming.REFERENCE_CALLS = 0
+    _zero_counters(klt, hamming)
     t0 = time.perf_counter()
     system = run(cfg_path, seq, out)          # device=None: the GPU
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, plain_calls = klt.LAUNCHES, klt.REFERENCE_CALLS
-    ham_launches, ham_plain = hamming.LAUNCHES, hamming.REFERENCE_CALLS
+    counts = _read_counters(klt, hamming)
 
     n_poses, ate, path = trajectory_ate(os.path.join(out, "vio.txt"), os.path.join(seq, "gt.csv"))
     check(n_poses >= 20, f"main path: only {n_poses} poses in vio.txt")
-    print(f"main path: {n_poses} poses over {path:.4f} m, ATE {ate:.5f} m "
-          f"(bounds {ATE_BOUND_M} m and {ATE_BOUND_OF_PATH:.0%} of the path)")
+    print(f"main path: {n_poses} poses over {path:.4f} m, ATE {ate:.5f} m (recorded: {RECORDED_ATE_M} m; "
+          f"bounds {ATE_BOUND_M} m and {ATE_BOUND_OF_PATH:.0%} of the path)")
     check(ate < ATE_BOUND_M, f"main path: ATE {ate:.4f} m is not below {ATE_BOUND_M} m")
     check(ate < ATE_BOUND_OF_PATH * path,
           f"main path: ATE {ate:.4f} m is not below {ATE_BOUND_OF_PATH:.0%} of {path:.3f} m")
@@ -527,13 +822,14 @@ def phase_main(torch, work_dir):
     check(core.state.poses.dtype == torch.float32, "main path: the state is not float32")
     check(system.estimator.reboots == 0, "main path: the estimator rebooted")
 
-    # 6 launches (3 levels x forward and backward) for every frame that had
-    # features to track: every frame after the first
+    # one lk_track launch (3 levels x forward and backward) for every frame
+    # that had features to track: every frame after the first
     tracked_frames = system.stats.counts["track"] - 1
     check(tracked_frames == N_FRAMES - 1, f"main path: {tracked_frames} tracked frames")
-    check(launches == 6 * tracked_frames,
-          f"main path: {launches} lk_level launches, expected {6 * tracked_frames}")
-    check(plain_calls == 0, f"main path: the plain version ran {plain_calls} times")
+    check(counts["lk_track"] == tracked_frames,
+          f"main path: {counts['lk_track']} lk_track launches, expected {tracked_frames}")
+    check(counts["lk_level"] == 0, f"main path: {counts['lk_level']} lk_level launches, expected 0")
+    check(counts["plain"] == 0, f"main path: plain versions ran {counts['plain']} times")
 
     # the front end really fed the estimator: tracks survive, landmarks are solved
     n_tracked = int((system.tracker.track_len >= 5).sum())
@@ -548,16 +844,16 @@ def phase_main(torch, work_dir):
     loop_lines = np.loadtxt(os.path.join(out, "loop.txt"), ndmin=2)
     print(f"main path: {n_kf} keyframes in the pose graph of {sum(system.estimator.keyframe_flags)} "
           f"solved keyframes, {len(loop_lines)} lines in loop.txt, {len(pg.loop_edges)} loop edges, "
-          f"hamming_matrix launches {ham_launches}")
+          f"hamming_match launches {counts['hamming_match']}")
     check(len(loop_lines) == n_kf >= MIN_LOOP_KEYFRAMES,
           f"main path: {len(loop_lines)} lines in loop.txt for {n_kf} keyframes "
           f"(at least {MIN_LOOP_KEYFRAMES} expected)")
     check(bool(np.isfinite(loop_lines).all()), "main path: non-finite pose in loop.txt")
     check(pg.describes == {"cuda": n_kf}, f"main path: descriptors computed on {dict(pg.describes)}")
     check(pg.db.hists.is_cuda and pg.db.valid.is_cuda, "main path: the BoW tables are not on the GPU")
-    check(ham_launches == pg.match_calls and ham_plain == 0,
-          f"main path: {ham_launches} hamming launches, {pg.match_calls} matches, "
-          f"{ham_plain} plain calls")
+    check(counts["hamming_match"] == pg.match_calls and counts["hamming_matrix"] == 0,
+          f"main path: {counts['hamming_match']} hamming_match and {counts['hamming_matrix']} "
+          f"hamming_matrix launches for {pg.match_calls} matches")
 
     stats = system.stats
     print(f"main path: track median {stats.median('track'):.2f} ms/frame "
@@ -566,9 +862,8 @@ def phase_main(torch, work_dir):
           f"loop median {stats.median('loop'):.2f} ms/keyframe (mean {stats.mean('loop'):.2f}) "
           f"over {stats.counts['loop']} keyframes")
     print(f"main path: {N_FRAMES / wall:.3f} frames/s ({wall:.1f} s wall for {N_FRAMES} frames, "
-          f"image loading and keyframe description included), lk_level launches {launches}",
-          flush=True)
-    return launches, ham_launches
+          f"image loading and keyframe description included), launches {counts}", flush=True)
+    return counts
 
 
 # --------------------------------------------------------------------------- 5
@@ -770,13 +1065,14 @@ def run_revisit(device, work_dir):
 def phase_revisit(torch, work_dir):
     import numpy as np
 
-    from ground_fusion_tpu_torch.ops.cuda import hamming
+    from ground_fusion_tpu_torch.ops.cuda import hamming, klt
 
-    hamming.LAUNCHES = hamming.REFERENCE_CALLS = 0
+    _zero_counters(klt, hamming)
     t0 = time.perf_counter()
     graphs, system, published, ms, errors, hook_err = run_revisit("cuda", work_dir)
     wall = time.perf_counter() - t0
-    launches, plain = hamming.LAUNCHES, hamming.REFERENCE_CALLS
+    counts = _read_counters(klt, hamming)
+    launches = counts["hamming_match"]
     n_kf = REVISIT_PLACES + REVISIT_AGAIN
     hook_pg = system.pose_graph
     matches = sum(pg.match_calls for pg in graphs.values()) + hook_pg.match_calls
@@ -809,9 +1105,10 @@ def phase_revisit(torch, work_dir):
           f"revisit hook: observations {hook_err['norm']} from the drive's > {HOOK_NORM_TOL}")
     check(hook_err["px"] <= HOOK_PX_TOL,
           f"revisit hook: window pixels {hook_err['px']} px from the drive's > {HOOK_PX_TOL}")
-    check(launches >= 1 and launches == matches,
-          f"revisit: {launches} hamming_matrix launches for {matches} descriptor matches")
-    check(plain == 0, f"revisit: the plain Hamming version ran {plain} times")
+    check(launches >= 1 and launches == matches and counts["hamming_matrix"] == 0,
+          f"revisit: {launches} hamming_match and {counts['hamming_matrix']} hamming_matrix "
+          f"launches for {matches} descriptor matches")
+    check(counts["plain"] == 0, f"revisit: plain versions ran {counts['plain']} times")
 
     def med(v):
         return sorted(v)[len(v) // 2]
@@ -823,9 +1120,8 @@ def phase_revisit(torch, work_dir):
           f"PnP of the process included), optimize {ms['optimize_4dof'][0]:.2f} ms (4-DoF), "
           f"{ms['optimize_6dof'][0]:.2f} ms (6-DoF) over {n_kf} keyframes; system keyframe hook "
           f"median {med(ms['hook']):.2f} ms (transform, describe, add_keyframe; optimize on a new "
-          f"edge), max {max(ms['hook']):.2f} ms; {wall:.1f} s wall, hamming_matrix launches "
-          f"{launches}", flush=True)
-    return launches
+          f"edge), max {max(ms['hook']):.2f} ms; {wall:.1f} s wall, launches {counts}", flush=True)
+    return counts
 
 
 # --------------------------------------------------------------------------- 6
@@ -989,21 +1285,23 @@ def phase_solvers(torch, work_dir, device="cuda"):
 def main() -> int:
     torch, card = phase_device()
     phase_build()
-    entry = phase_kernels(torch)
-    ham_entry = phase_hamming(torch)
+    entries = {"lk_level": phase_kernels(torch), "lk_track": phase_track(torch)}
+    entries["hamming_matrix"], entries["hamming_match"] = phase_hamming(torch)
     if "--kernels" in sys.argv[1:]:
-        print(json.dumps({"kernels": [entry, ham_entry]}))
+        print(json.dumps({"kernels": list(entries.values())}))
         print("chip_smoke: kernel phases passed; main path not run")
         return 0
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.environ.get("TMPDIR"))
     try:
-        entry["launches"], ham_main = phase_main(torch, work_dir)
-        ham_entry["launches"] = ham_main + phase_revisit(torch, work_dir)
+        main_counts = phase_main(torch, work_dir)
+        revisit_counts = phase_revisit(torch, work_dir)
+        for name, entry in entries.items():
+            entry["launches"] = main_counts[name] + revisit_counts[name]
         phase_solvers(torch, work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(card)
-    print(json.dumps({"kernels": [entry, ham_entry]}))
+    print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,8 +9,10 @@ that Hamming distance is XOR + popcount.
 
 Packed descriptors are ``torch.int32 [K, 8]`` tensors holding the uint32 bit
 pattern of each word (numpy ``uint32.view(np.int32)``). :func:`match_brief`
-takes its distances from ``ops/cuda/hamming.py::hamming_matrix``: the CUDA
-kernel for CUDA tensors, the plain SWAR popcount for CPU tensors.
+is ``ops/cuda/hamming.py::hamming_match``: one launch of the fused masked
+match kernel for CUDA tensors, and for CPU tensors the plain version beside
+it, ``match_brief_reference`` (the SWAR distance matrix, mask, ``argmin``,
+``gather``).
 
 The test-pair pattern is generated from a fixed RNG seed (the reference ships
 a learned .yml pattern; any fixed pattern works as long as both frames use the
@@ -23,9 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
-# the kernel's wrapper (the plain SWAR popcount on CPU tensors), under the
-# JAX package's name ``brief.hamming_matrix``
-from ..ops.cuda.hamming import hamming_matrix
+# the kernels' wrappers; the distance matrix under the JAX package's name
+# ``brief.hamming_matrix``
+from ..ops.cuda.hamming import hamming_match, hamming_matrix
 
 # 16-point Bresenham circle of radius 3 (cv::FAST)
 _CIRCLE = np.array(
@@ -135,9 +137,7 @@ def match_brief(desc_cur: Tensor, ok_cur: Tensor, desc_old: Tensor, ok_old: Tens
     """Best-match search with Hamming gate (keyframe.cpp:194-244
     searchInAera/searchByBRIEFDes): for every current descriptor, the nearest
     old descriptor if dist < ``thresh``. Returns (idx [Kc], matched [Kc]);
-    among equal distances the first old index wins, as ``jnp.argmin`` does."""
-    d = hamming_matrix(desc_cur, desc_old)
-    d = torch.where(ok_old[None, :], d, torch.full_like(d, 10_000))
-    idx = torch.argmin(d, dim=1)                      # documented: the first minimum
-    best = torch.gather(d, 1, idx[:, None])[:, 0]
-    return idx, ok_cur & (best < thresh)
+    among equal distances the first old index wins, as ``jnp.argmin`` does.
+    One kernel launch for CUDA tensors; ``match_brief_reference`` of
+    ``ops/cuda/hamming.py`` for CPU tensors."""
+    return hamming_match(desc_cur, ok_cur, desc_old, ok_old, thresh)

@@ -6,6 +6,7 @@ by git), keyed by a hash of the source text and the compiler flags, so an
 edited source is rebuilt and an unchanged one is reused. Nothing is built at
 import time: :func:`library` builds at first use, :func:`build_all` starts one
 ``nvcc`` per source at once and waits for all of them. A failed build raises.
+:func:`current_stream` is the stream handle the wrappers launch on.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -84,3 +87,11 @@ def library(name: str) -> ctypes.CDLL:
         _finish(name, _start(name))
         _libs[name] = ctypes.CDLL(_target(name))
     return _libs[name]
+
+
+def current_stream(dev) -> int:
+    """The raw handle of ``dev``'s current stream, from PyTorch's raw query:
+    ``torch.cuda.current_stream(dev).cuda_stream`` builds a Stream object
+    first and costs some 20 times as much host time a call
+    (``tools/wrapper_host_cost.py``)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)

@@ -1,8 +1,8 @@
-"""PyTorch port vs JAX package: the LK level's plain version, the pyramid,
-bidirectional tracking, corner refill, depth sampling and the feature
-tracker, on the same numpy-seeded images. On the CPU the port's wrapper runs
-the plain version; the CUDA kernel itself is held against the plain version
-on the GPU by ``chip_smoke.py``."""
+"""PyTorch port vs JAX package: the LK level's plain version, the plain
+chain behind ``lk_track``, the pyramid, bidirectional tracking, corner
+refill, depth sampling and the feature tracker, on the same numpy-seeded
+images. On the CPU the port's wrappers run the plain versions; the CUDA
+kernel itself is held against them on the GPU by ``chip_smoke.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -102,6 +102,124 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     pts = torch.zeros((2, 2), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_klt.lk_level(img, img, pts, pts, torch.ones(2, dtype=torch.bool, device="meta"))
+
+
+def _track_case(h=60, w=80, n=16, seed=3):
+    """A texture and its copy shifted by (+2 rows, -1 column); points inside,
+    near every border (so the ``inb`` masks bite) and invalid ones; seeds
+    offset from the previous points."""
+    tex = _textured(h, w, seed=seed)
+    cur = np.roll(tex, (2, -1), (0, 1))
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(12, w - 12, n), rng.uniform(12, h - 12, n)], -1)
+    pts[0:3] = [[1.5, 30.0], [w - 2.5, 25.0], [40.0, h - 1.2]]
+    seed_pts = pts + rng.normal(0, 0.5, pts.shape)
+    valid = np.ones(n, bool)
+    valid[3:5] = False
+    return tex, cur, pts, seed_pts, valid
+
+
+def test_lk_track_reference_matches_jax_track_bidirectional():
+    """The plain chain behind ``lk_track`` (3 levels, both directions, masks,
+    round-trip gate) against the JAX package's ``track_bidirectional``, f64."""
+    tex, cur, pts, seed_pts, valid = _track_case()
+    jp0 = tuple(jklt.build_pyramid(jnp.asarray(tex, jnp.float64), 3))
+    jp1 = tuple(jklt.build_pyramid(jnp.asarray(cur, jnp.float64), 3))
+    want_pts, want_ok = jklt.track_bidirectional(
+        jp0, jp1, jnp.asarray(pts), jnp.asarray(seed_pts), jnp.asarray(valid), 3, 10, 10, 0.5)
+    got_pts, got_ok = cuda_klt.lk_track_reference(
+        tklt.build_pyramid(torch.as_tensor(tex), 3), tklt.build_pyramid(torch.as_tensor(cur), 3),
+        torch.as_tensor(pts), torch.as_tensor(seed_pts), torch.as_tensor(valid), 3, 10, 10, 0.5)
+    want_ok = np.asarray(want_ok)
+    assert np.array_equal(want_ok, got_ok.numpy())
+    assert 6 <= want_ok.sum() < len(pts) - 2 and not want_ok[3:5].any()
+    assert np.abs(np.asarray(want_pts) - got_pts.numpy()).max() <= 1e-6        # px
+
+
+def test_lk_track_on_cpu_runs_the_plain_chain_and_counts_no_launch():
+    tex, cur, pts, seed_pts, valid = _track_case()
+    args = (tklt.build_pyramid(torch.as_tensor(tex, dtype=torch.float32), 3),
+            tklt.build_pyramid(torch.as_tensor(cur, dtype=torch.float32), 3),
+            torch.as_tensor(pts, dtype=torch.float32), torch.as_tensor(seed_pts, dtype=torch.float32),
+            torch.as_tensor(valid), 3, 10, 10, 0.5)
+    counts = (cuda_klt.TRACK_LAUNCHES, cuda_klt.TRACK_REFERENCE_CALLS, cuda_klt.LAUNCHES,
+              cuda_klt.REFERENCE_CALLS)
+    got = cuda_klt.lk_track(*args)
+    assert (cuda_klt.TRACK_LAUNCHES, cuda_klt.TRACK_REFERENCE_CALLS, cuda_klt.LAUNCHES,
+            cuda_klt.REFERENCE_CALLS) == (counts[0], counts[1] + 1, counts[2], counts[3])
+    want = cuda_klt.lk_track_reference(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_tracking_and_stereo_depths_go_through_lk_track(monkeypatch):
+    """``track_bidirectional`` is one ``lk_track`` call, and the tracker's
+    frame and stereo paths both reach it through ``track_bidirectional``."""
+    calls = []
+
+    def counting(*args):
+        calls.append(args[5])                       # levels
+        return cuda_klt.lk_track(*args)
+
+    monkeypatch.setattr(tklt, "lk_track", counting)
+    img0, _ = _blob_frame(20)
+    img1, _ = _blob_frame(21, shift=(1.0, -1.0))
+    tt = TTracker(TPinhole.make(300.0, 300.0, 160.0, 120.0), max_cnt=24, min_dist=20, device="cpu")
+    tt.baseline = 0.1
+    tt.track(0.0, img0)
+    assert calls == []                              # nothing to track in the first frame
+    tt.track(0.1, img1, img_right=np.roll(img1, -3, axis=1))
+    assert calls == [3, 3]                          # the frame's features, then stereo depths
+
+
+def _lk_meta_args():
+    """Arguments of ``lk_track`` on 'meta' tensors (neither CPU nor CUDA),
+    which the checks of the CUDA path see without a card."""
+    def pyr():
+        return [torch.empty((60 >> k, 80 >> k), device="meta") for k in range(3)]
+    return [pyr(), pyr(), torch.empty((16, 2), device="meta"), torch.empty((16, 2), device="meta"),
+            torch.empty(16, dtype=torch.bool, device="meta"), 3]
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("image_dtype", TypeError, "float32"),
+    ("image_shape", ValueError, "expected"),
+    ("image_device", ValueError, "is on cpu"),
+    ("points_shape", ValueError, r"must be \[16, 2\]"),
+    ("points_dtype", TypeError, "float32"),
+    ("valid", ValueError, "bool or uint8"),
+    ("levels_over_the_kernel", ValueError, "levels do not fit"),
+    ("levels_over_the_pyramid", ValueError, "levels do not fit"),
+    ("half_over_the_kernel", ValueError, "half-size"),
+    ("too_many_rows", ValueError, "features do not fit"),
+    ("meta", ValueError, "unsupported device"),
+])
+def test_lk_track_wrapper_refuses_what_the_kernel_does_not_take(case, error, match):
+    args, kw = _lk_meta_args(), {}
+    if case == "image_dtype":
+        args[1][1] = torch.empty((30, 40), dtype=torch.float64, device="meta")
+    elif case == "image_shape":
+        args[1][2] = torch.empty((16, 20), device="meta")
+    elif case == "image_device":
+        args[1][0] = torch.empty((60, 80))
+    elif case == "points_shape":
+        args[3] = torch.empty((16, 3), device="meta")
+    elif case == "points_dtype":
+        args[2] = torch.empty((16, 2), dtype=torch.float64, device="meta")
+    elif case == "valid":
+        args[4] = torch.empty(16, dtype=torch.int32, device="meta")
+    elif case == "levels_over_the_kernel":
+        args[5] = cuda_klt.MAX_LEVELS + 1
+    elif case == "levels_over_the_pyramid":
+        args[5] = 4
+    elif case == "half_over_the_kernel":
+        kw["half"] = cuda_klt.MAX_HALF + 1
+    elif case == "too_many_rows":
+        args[2] = args[3] = torch.empty((2**31, 2), device="meta")
+        args[4] = torch.empty(2**31, dtype=torch.bool, device="meta")
+    launches = cuda_klt.TRACK_LAUNCHES
+    with pytest.raises(error, match=match):
+        cuda_klt.lk_track(*args, **kw)
+    assert cuda_klt.TRACK_LAUNCHES == launches
 
 
 def test_pyramid_and_bidirectional_match_jax():

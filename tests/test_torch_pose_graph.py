@@ -228,10 +228,10 @@ def loop_run():
     tc = tpg.PoseGraph(tcfg, device="cpu")
     pose_graph_from_numpy(state10, tc)
     tc.draw_pnp_noise = JaxNoise(key10)
-    plain = hamming.REFERENCE_CALLS
+    plain = hamming.MATCH_REFERENCE_CALLS        # match_brief's wrapper on CPU tensors
     tc.add_keyframe(_keyframe(tpg, inp, jd))
     return dict(jg=jg, tg=tg, tc=tc, jg_before=jg_before, describe=ported_describe,
-                carried_match_calls=hamming.REFERENCE_CALLS - plain)
+                carried_match_calls=hamming.MATCH_REFERENCE_CALLS - plain)
 
 
 def test_port_describe_matches_on_the_loop_images(loop_run):
