@@ -48,10 +48,22 @@ Phases (any failure ends the run with a non-zero exit code):
               DBoW2 vocabulary written with ``save_binary`` and query its
               database on the card and on the CPU: the same words, weights
               and answers.
+7. gnss     — render a 40-frame sequence at the intrinsics and wheel mount
+              of ``configs/m2dgrp.yaml`` with a GNSS receiver at the IMU
+              (10 satellites above the config's elevation mask, drifting GPS
+              and BeiDou clocks, troposphere; one epoch per frame in
+              ``gnss.csv``, a fix every third frame in ``gps.csv``) and run
+              it through ``__main__.run`` on the GPU with that config
+              unchanged: GNSS-VI alignment happens, GNSS slots are live,
+              the trajectory and the newest pose's ECEF position are right,
+              one ``lk_track`` launch per tracked frame, ``global.txt`` has
+              a finite pose per solved frame; and the float32
+              pseudorange/Doppler rows at ground truth stay below 5 mm on
+              the card. Prints per-stage times beside phase 4's.
 Then the card's line, the ``{"kernels": [...]}`` line (one entry per kernel
 entry point: ``lk_level``, ``lk_track``, ``hamming_matrix``,
-``hamming_match``; launches counted on the paths of phases 4 and 5), and the
-last line ``{"ok": true, "device": {...}}``.
+``hamming_match``; launches counted on the paths of phases 4, 5 and 7), and
+the last line ``{"ok": true, "device": {...}}``.
 
 The script imports only the port (never JAX or the JAX package), needs no
 network, and starts no process that outlives it.
@@ -132,6 +144,24 @@ LARGE_KEYFRAMES, LARGE_LAP, LARGE_LOOP_STEP = 300, 60, 5
 SOLVER_TOL = 1e-9
 VOCAB_K, VOCAB_L = 10, 3       # the synthetic vocabulary: 10-way tree, 3 levels (1000 words)
 SCORE_TOL = 1e-6
+# The GNSS drive: the smoke sequence's motion, seen by configs/m2dgrp.yaml's
+# camera and wheel mount, with a receiver at the IMU. The GNSS world of
+# tests/test_pipeline.py: anchor 31.0 N 121.4 E 12 m, ENU-local yaw 0.25,
+# 10 satellites at 35-80 degrees of elevation (above the config's 30 degree
+# mask) from seed 3, receiver clocks 15 m (GPS) and 22 m (BeiDou) at t = 0
+# drifting 4 m/s (the clock integrates its drift; the generator of
+# tests/test_pipeline.py holds it constant, ROADMAP queue 3), Saastamoinen
+# troposphere; one epoch at every frame (the JAX package pairs the last
+# epochs with the last window frames at alignment, ROADMAP queue 3) and a
+# 0.5 m GPS fix at every third frame.
+GNSS_FRAMES = 40
+GNSS_ANCHOR_LLA_DEG = (31.0, 121.4, 12.0)
+GNSS_YAW = 0.25
+GNSS_SATS, GNSS_SAT_SEED, GNSS_ELEVATION_DEG = 10, 3, (35.0, 80.0)
+GNSS_RCV_DT, GNSS_RCV_DDT = (15.0, 0.0, 0.0, 22.0), 4.0
+GPS_EVERY, GPS_ACCURACY_M = 3, 0.5
+GNSS_ECEF_BOUND_M = 1.0      # the newest pose in ECEF (tests/test_pipeline.py)
+PSR_F32_BOUND_M = 5e-3       # float32 rows at ground truth (tests/test_gnss.py)
 
 
 def fail(msg: str) -> None:
@@ -787,6 +817,10 @@ def _read_counters(klt, hamming):
             + hamming.MATCH_REFERENCE_CALLS}
 
 
+def stage_times(stats) -> dict:
+    return {name: (stats.median(name), stats.mean(name)) for name in ("track", "solve")}
+
+
 def phase_main(torch, work_dir):
     import numpy as np
 
@@ -863,7 +897,7 @@ def phase_main(torch, work_dir):
           f"over {stats.counts['loop']} keyframes")
     print(f"main path: {N_FRAMES / wall:.3f} frames/s ({wall:.1f} s wall for {N_FRAMES} frames, "
           f"image loading and keyframe description included), launches {counts}", flush=True)
-    return counts
+    return counts, stage_times(stats)
 
 
 # --------------------------------------------------------------------------- 5
@@ -1279,6 +1313,221 @@ def phase_solvers(torch, work_dir, device="cuda"):
     check(abs(scores[device][1] - 1.0) <= SCORE_TOL, "solvers: a stored set does not score 1 against itself")
 
 
+# --------------------------------------------------------------------------- 7
+
+
+GNSS_CONFIG_PATH = os.path.join(ROOT, "configs", "m2dgrp.yaml")
+
+
+class GnssWorld:
+    """The truth of the GNSS drive: the simulator's world (z up) placed at
+    the anchor, turned by the ENU-local yaw, with the receiver at the IMU of
+    ``mounts`` (its position at t = 0 sits on the anchor)."""
+
+    def __init__(self, np, sp, mounts):
+        from ground_fusion_tpu_torch.gnss.coords import ecef2rotation, geo2ecef
+        from ground_fusion_tpu_torch.sim.gnss import sky
+        from ground_fusion_tpu_torch.sim.render import vehicle_T_imu
+
+        self.np, self.sp = np, sp
+        lat, lon, h = GNSS_ANCHOR_LLA_DEG
+        self.anc = geo2ecef(np.array([np.deg2rad(lat), np.deg2rad(lon), h]))
+        cy, sy = np.cos(GNSS_YAW), np.sin(GNSS_YAW)
+        self.R = ecef2rotation(self.anc) @ np.array([[cy, -sy, 0.0], [sy, cy, 0.0], [0.0, 0.0, 1.0]])
+        self.r_x, self.t_x = vehicle_T_imu(mounts)
+        self.p0 = self.p_imu(0.0)
+        rng = np.random.default_rng(GNSS_SAT_SEED)
+        self.sats = sky(self.anc, GNSS_SATS, rng, el_deg=GNSS_ELEVATION_DEG)
+        self.sat_vel = rng.normal(0, 2500, (GNSS_SATS, 3))
+
+    def p_imu(self, t):
+        from ground_fusion_tpu_torch.sim.synthetic import gt_pose7
+        from ground_fusion_tpu_torch.utils import np_quat
+
+        p = gt_pose7(t, self.sp).numpy()
+        return p[0:3] + np_quat.quat_to_mat(p[3:7]) @ self.t_x
+
+    def ecef(self, p_sim):
+        """ECEF of a point of the simulator's world."""
+        return self.anc + self.R @ (self.np.asarray(p_sim) - self.p0)
+
+    def epoch(self, t):
+        from ground_fusion_tpu_torch.sim.gnss import observe
+
+        h = 1e-3
+        v = (self.p_imu(t + h) - self.p_imu(t - h)) / (2 * h)
+        return observe(self.ecef(self.p_imu(t)), self.R @ v, self.sats, self.sat_vel,
+                       self.np.asarray(GNSS_RCV_DT) + GNSS_RCV_DDT * t, GNSS_RCV_DDT)
+
+
+def render_gnss_sequence(seq_dir: str, n_frames: int = GNSS_FRAMES):
+    """The GNSS drive, from its seeds: the rendered frames, IMU, wheel and
+    ground truth at ``configs/m2dgrp.yaml``'s intrinsics and mounts, plus
+    ``gnss.csv`` (one epoch per frame) and ``gps.csv`` (a fix every
+    GPS_EVERY frames). Returns the truth (:class:`GnssWorld`)."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.config import load_yaml
+    from ground_fusion_tpu_torch.gnss.coords import ecef2geo
+    from ground_fusion_tpu_torch.sim.gnss import csv_rows
+    from ground_fusion_tpu_torch.sim.render import Mounts, render_sequence
+    from ground_fusion_tpu_torch.sim.synthetic import SimParams
+
+    cfg = load_yaml(GNSS_CONFIG_PATH)
+    cam, sp, mounts = cfg.camera, SimParams(**SMOKE_SIM), Mounts.from_config(cfg)
+    render_sequence(seq_dir, n_frames, cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+                    sp=sp, n_landmarks=SMOKE_LANDMARKS, seed=SMOKE_SEED, mounts=mounts)
+    world = GnssWorld(np, sp, mounts)
+    ts = np.arange(n_frames) / sp.frame_rate
+    np.savetxt(os.path.join(seq_dir, "gnss.csv"),
+               np.concatenate([csv_rows(t, world.epoch(t)) for t in ts]), delimiter=",")
+    fixes = []
+    for t in ts[::GPS_EVERY]:
+        lat, lon, h = ecef2geo(world.ecef(world.p_imu(t)))
+        fixes.append([t, np.rad2deg(lat), np.rad2deg(lon), h, GPS_ACCURACY_M])
+    np.savetxt(os.path.join(seq_dir, "gps.csv"), np.asarray(fixes), delimiter=",")
+    return world
+
+
+def gnss_errors(np, est, world, gt_path):
+    """The estimator's global frame against the truth: (ECEF error of the
+    newest pose, ECEF RMS over the poses solved since alignment, recovered
+    and expected ENU-local yaw, error of the anchor). The local frame's yaw
+    and origin in the simulator's world come from the newest pose against
+    ``gt.csv``."""
+    from ground_fusion_tpu_torch.gnss.coords import ecef2rotation
+    from ground_fusion_tpu_torch.utils import np_quat
+
+    yaw = float(est.core.state.yaw_enu)
+    anc = est.anchor_ecef()
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    R_est = ecef2rotation(anc) @ np.array([[cy, -sy, 0.0], [sy, cy, 0.0], [0.0, 0.0, 1.0]])
+    gt = np.loadtxt(gt_path, ndmin=2)
+
+    def truth(t):
+        row = gt[np.argmin(np.abs(gt[:, 0] - t))]
+        return row[1:4], np_quat.quat_to_mat(np.array([row[7], row[4], row[5], row[6]]))
+
+    errs = []
+    for t, p in est.trajectory:
+        if t >= est.gnss_aligned_at:
+            errs.append(np.linalg.norm(anc + R_est @ p[0:3] - world.ecef(truth(t)[0])))
+    t_last, p_last = est.trajectory[-1]
+    p_true, R_true = truth(t_last)
+    R_sl = R_true @ np_quat.quat_to_mat(p_last[3:7]).T          # simulator ← local
+    yaw_expected = GNSS_YAW + np.arctan2(R_sl[1, 0], R_sl[0, 0])
+    anc_expected = world.ecef(p_true - R_sl @ p_last[0:3])
+    return (errs[-1], float(np.sqrt(np.mean(np.square(errs)))), yaw,
+            float(np.arctan2(np.sin(yaw_expected), np.cos(yaw_expected))),
+            float(np.linalg.norm(anc - anc_expected)))
+
+
+def psr_dopp_f32_at_truth(torch, device):
+    """Largest float32 psr/Doppler row at ground truth on ``device``: the
+    window of tests/test_gnss.py's float32 case (the default window,
+    8 satellites, unit weights)."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.config import Config
+    from ground_fusion_tpu_torch.estimator.layout import StateLayout
+    from ground_fusion_tpu_torch.estimator.window import empty_state
+    from ground_fusion_tpu_torch.gnss.coords import geo2ecef
+    from ground_fusion_tpu_torch.gnss.factors import linearize_gnss_psr_dopp
+    from ground_fusion_tpu_torch.sim.gnss import window_obs_at_truth
+
+    cfg = Config()
+    f = cfg.num_frames
+    anc = geo2ecef(np.array([np.deg2rad(31.0), np.deg2rad(121.4), 15.0]))
+    rng = np.random.default_rng(5)
+    pos, vel = rng.normal(0, 2.0, (f, 3)), rng.normal(0, 0.5, (f, 3))
+    dt_vals = np.tile([20.0, 0.0, 0.0, 35.0], (f, 1)) + np.arange(f)[:, None] * 0.5
+    ddt_vals = np.full(f, 5.0)
+    kw = dict(dtype=torch.float32, device=device)
+    st = empty_state(f, **kw)
+    st = st._replace(poses=torch.cat([torch.as_tensor(pos, **kw), st.poses[:, 3:]], 1),
+                     sbs=torch.cat([torch.as_tensor(vel, **kw), st.sbs[:, 3:]], 1),
+                     rcv_dt=torch.as_tensor(dt_vals, **kw), rcv_ddt=torch.as_tensor(ddt_vals, **kw),
+                     yaw_enu=torch.tensor(0.3, **kw))
+    obs = window_obs_at_truth(anc, 0.3, pos, vel, dt_vals, ddt_vals, **kw)
+    ready = torch.ones((), dtype=torch.bool, device=device)
+    _, r = linearize_gnss_psr_dopp(st, obs, ready, StateLayout(f, cfg.solver.max_landmarks))
+    check(r.device.type == torch.device(device).type and r.dtype == torch.float32,
+          f"gnss: rows on {r.device} in {r.dtype}")
+    return float(r.abs().max())
+
+
+def phase_gnss(torch, work_dir, main_times):
+    import numpy as np
+
+    from ground_fusion_tpu_torch.__main__ import run
+    from ground_fusion_tpu_torch.ops.cuda import hamming, klt
+
+    err_f32 = psr_dopp_f32_at_truth(torch, "cuda")
+    print(f"gnss: float32 psr/Doppler rows at ground truth on the card: max {err_f32 * 1e3:.4f} mm "
+          f"(bound {PSR_F32_BOUND_M * 1e3:.0f} mm)", flush=True)
+    check(err_f32 < PSR_F32_BOUND_M, f"gnss: float32 rows {err_f32} m at ground truth")
+
+    seq = os.path.join(work_dir, "gnss_seq")
+    out = os.path.join(work_dir, "gnss_out")
+    t0 = time.perf_counter()
+    world = render_gnss_sequence(seq)
+    print(f"gnss: rendered {GNSS_FRAMES} frames with GNSS and GPS files in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    _zero_counters(klt, hamming)
+    t0 = time.perf_counter()
+    system = run(GNSS_CONFIG_PATH, seq, out)          # device=None: the GPU
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counters(klt, hamming)
+
+    est = system.estimator
+    check(est.gnss_aligned, "gnss: GNSS-VI alignment never happened")
+    aligned_frame = int(round(est.gnss_aligned_at * SMOKE_SIM["frame_rate"]))
+    n_poses, ate, path = trajectory_ate(os.path.join(out, "vio.txt"), os.path.join(seq, "gt.csv"))
+    n_slots = int(est.core.gnss_obs.valid.sum())
+    print(f"gnss: aligned at frame {aligned_frame}; {n_slots} valid GNSS slots in the final window; "
+          f"{n_poses} poses over {path:.4f} m, ATE {ate:.5f} m (bounds {ATE_BOUND_M} m and "
+          f"{ATE_BOUND_OF_PATH:.0%} of the path)", flush=True)
+    check(n_slots > 0, "gnss: no valid GNSS slot in the final window")
+    check(ate < ATE_BOUND_M, f"gnss: ATE {ate:.4f} m is not below {ATE_BOUND_M} m")
+    check(ate < ATE_BOUND_OF_PATH * path,
+          f"gnss: ATE {ate:.4f} m is not below {ATE_BOUND_OF_PATH:.0%} of {path:.3f} m")
+    check(est.reboots == 0, "gnss: the estimator rebooted")
+    check(est.core.state.poses.is_cuda and est.core.gnss_obs.psr_red.is_cuda,
+          "gnss: the state or the GNSS table is not on the GPU")
+    check(est.core.state.poses.dtype == torch.float32, "gnss: the state is not float32")
+
+    last_err, rms, yaw, yaw_expected, anc_err = gnss_errors(np, est, world, os.path.join(seq, "gt.csv"))
+    print(f"gnss: newest pose {last_err:.4f} m from its true ECEF position (bound {GNSS_ECEF_BOUND_M} m), "
+          f"ECEF RMS {rms:.4f} m over the poses since alignment; yaw_enu {yaw:.6f} rad recovered, "
+          f"{yaw_expected:.6f} expected ({yaw - yaw_expected:+.2e}); anchor {anc_err:.4f} m off", flush=True)
+    check(last_err < GNSS_ECEF_BOUND_M, f"gnss: newest pose {last_err:.3f} m off in ECEF")
+
+    tracked_frames = system.stats.counts["track"] - 1
+    check(tracked_frames == GNSS_FRAMES - 1, f"gnss: {tracked_frames} tracked frames")
+    check(counts["lk_track"] == tracked_frames,
+          f"gnss: {counts['lk_track']} lk_track launches, expected {tracked_frames}")
+    check(counts["lk_level"] == 0 and counts["plain"] == 0,
+          f"gnss: {counts['lk_level']} lk_level launches, plain versions ran {counts['plain']} times")
+
+    glob = np.loadtxt(os.path.join(out, "global.txt"), ndmin=2)
+    check(len(glob) == len(est.trajectory) and bool(np.isfinite(glob).all()),
+          f"gnss: {len(glob)} lines in global.txt for {len(est.trajectory)} solved frames")
+    gf = system.global_fusion
+    print(f"gnss: global.txt {len(glob)} finite poses, {len(gf.gps)} GPS fixes attached", flush=True)
+
+    stats = system.stats
+    times = stage_times(stats)
+    print(f"gnss: track median {times['track'][0]:.2f} ms/frame (mean {times['track'][1]:.2f}; phase 4: "
+          f"{main_times['track'][0]:.2f}, {main_times['track'][1]:.2f}), solve median "
+          f"{times['solve'][0]:.2f} ms/frame (mean {times['solve'][1]:.2f}; phase 4: "
+          f"{main_times['solve'][0]:.2f}, {main_times['solve'][1]:.2f}) over {stats.counts['solve']} frames", flush=True)
+    print(f"gnss: {GNSS_FRAMES / wall:.3f} frames/s ({wall:.1f} s wall for {GNSS_FRAMES} frames), "
+          f"launches {counts}", flush=True)
+    return counts
+
+
 # ------------------------------------------------------------------------ main
 
 
@@ -1293,11 +1542,12 @@ def main() -> int:
         return 0
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.environ.get("TMPDIR"))
     try:
-        main_counts = phase_main(torch, work_dir)
+        main_counts, main_times = phase_main(torch, work_dir)
         revisit_counts = phase_revisit(torch, work_dir)
-        for name, entry in entries.items():
-            entry["launches"] = main_counts[name] + revisit_counts[name]
         phase_solvers(torch, work_dir)
+        gnss_counts = phase_gnss(torch, work_dir, main_times)
+        for name, entry in entries.items():
+            entry["launches"] = main_counts[name] + revisit_counts[name] + gnss_counts[name]
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(card)

@@ -7,8 +7,10 @@ The ``rosrun vins vins_node config.yaml`` + ``rosbag play`` analog
 (README.md:146-161) for the file-driven dataset layout of
 :mod:`ground_fusion_tpu_torch.io.dataset`. The system runs on the GPU unless
 ``--device cpu`` is given; without a GPU and without that flag it exits with
-an error. The burst mode, checkpointing and GNSS replay options of the JAX
-package's CLI are not ported yet."""
+an error. GNSS epochs (``gnss.csv``, with ``iono.csv``) feed the tight
+coupling when the config enables it; GPS fixes (``gps.csv``) feed the global
+fusion. The burst mode and checkpointing options of the JAX package's CLI are
+not ported yet."""
 
 from __future__ import annotations
 
@@ -34,6 +36,23 @@ def main(argv=None):
     return 0
 
 
+def gnss_row_obs(r) -> dict:
+    """One ``gnss.csv`` row → the observation dict of :mod:`.gnss.ingest`:
+    t, sat, sys, psr, dopp×wavelength, psr_std, dopp_std, sat_pos[3],
+    sat_vel[3], svdt, svddt, tgd[, ura[, tow]]."""
+    o = dict(
+        sat=int(r[1]), sys=int(r[2]), psr=r[3], dopp_wl=r[4],
+        dopp=r[4],    # SPP/alignment key: doppler×wavelength
+        psr_std=r[5], dopp_std=r[6], sat_pos=r[7:10].copy(),
+        sat_vel=r[10:13].copy(), svdt=r[13], svddt=r[14], tgd=r[15],
+    )
+    if len(r) > 16:
+        o["ura"] = r[16]
+    if len(r) > 17:
+        o["tow"] = r[17]
+    return o
+
+
 def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None):
     """The CLI replay loop; returns the finished :class:`GroundFusionSystem`
     (tests and the smoke script assert on its internals afterwards)."""
@@ -47,11 +66,22 @@ def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None):
     cfg = load_yaml(cfg_path)
     seq = Sequence.load(seq_dir)
     sys_ = GroundFusionSystem(cfg, out_dir, device=device)
+    if seq.iono is not None and sys_.estimator.gnss is not None:
+        # broadcast Klobuchar parameters (inputIonoParams,
+        # rosNodeTest.cpp:203-210) — converted bags carry them in iono.csv
+        sys_.estimator.gnss.iono_paras = list(seq.iono)
 
-    imu_i = wheel_i = 0
+    imu_i = wheel_i = gnss_i = gps_i = 0
     for k, frame in enumerate(seq.frames):
         t, img_path, dep_path = frame[0], frame[1], frame[2]
         right_path = frame[3] if len(frame) > 3 else None
+        if seq.gps is not None:
+            # NavSatFix fixes feed the loose global-fusion layer
+            # (globalOptNode.cpp GPS subscription)
+            while gps_i < len(seq.gps) and seq.gps[gps_i, 0] <= t:
+                r = seq.gps[gps_i]
+                sys_.input_gps_fix(r[0], r[1], r[2], r[3], r[4] if len(r) > 4 else 1.0)
+                gps_i += 1
         while imu_i < len(seq.imu) and seq.imu[imu_i, 0] <= t:
             row = seq.imu[imu_i]
             sys_.input_imu(row[0], row[1:4], row[4:7])
@@ -61,6 +91,17 @@ def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None):
                 row = seq.wheel[wheel_i]
                 sys_.input_wheel(row[0], row[1:4], row[4:7])
                 wheel_i += 1
+        if seq.gnss is not None and cfg.gnss.enabled:
+            # gnss.csv rows sharing a timestamp form one epoch (the GNSS
+            # meas-msg grouping of rosNodeTest.cpp:678-711); feed each epoch
+            # up to this frame through the tight-coupling path
+            while gnss_i < len(seq.gnss) and seq.gnss[gnss_i, 0] <= t:
+                t_ep = seq.gnss[gnss_i, 0]
+                epoch = []
+                while gnss_i < len(seq.gnss) and seq.gnss[gnss_i, 0] == t_ep:
+                    epoch.append(gnss_row_obs(seq.gnss[gnss_i]))
+                    gnss_i += 1
+                sys_.input_gnss(t_ep, epoch)
         img = load_image(img_path)
         depth = load_image(dep_path) if dep_path else None
         right = load_image(right_path) if right_path else None

@@ -14,7 +14,9 @@ The landmark (inverse-depth) columns live in the trailing ``ML`` columns, so
 the same rows feed either a joint dense solve or the Schur-complement path
 (:mod:`.solver`) — each visual factor touches exactly one landmark column.
 
-The GNSS and line row blocks of the JAX package are not ported yet.
+The GNSS rows (pseudorange/Doppler and the receiver clock chain, built in
+:mod:`..gnss.factors`) and the first-solve pose anchor join when the inputs
+carry them. The line row blocks of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ from .factors import (
     imu_residual_raw,
     plane_factor,
     plane_residual_raw,
+    POSE_ANCHOR_SQRT_INFO,
     pose_anchor_factor,
+    pose_anchor_residual_raw,
     proj21_factor,
     proj21_residual_raw,
     sqrt_info_from_cov,
@@ -280,6 +284,14 @@ class SolveInputs(NamedTuple):
     prior: MargPrior
     g: Tensor                   # [3] gravity in world
     free_mask: Tensor           # [TOTAL] 1.0 = optimizable, 0.0 = frozen
+    # --- optional GNSS block (None ⇒ no GNSS rows) ---
+    gnss_obs: object = None     # gnss.factors.GnssObsWindow | None
+    gnss_ready: Optional[Tensor] = None   # [] bool — gnss_ready gate
+    frame_dts: Optional[Tensor] = None    # [F] Δt between adjacent frames
+    ddt_weight: Optional[Tensor] = None   # [] GNSS_DDT_WEIGHT
+    # --- pose0 anchor (first GNSS-enabled solve, estimator.cpp:2943-2951) ---
+    anchor_pose: Optional[Tensor] = None  # [7] anchor value for pose0
+    anchor_active: Optional[Tensor] = None  # [] bool
 
 
 def assemble_rows(state: WindowState, tracks: Tracks, inp: SolveInputs,
@@ -293,8 +305,17 @@ def assemble_rows(state: WindowState, tracks: Tracks, inp: SolveInputs,
     )
     Jp, rp = linearize_plane(state, inp.plane_valid, plane_sqrt_info, layout)
     Jm, rm = linearize_prior(state, inp.prior, layout)
-    J = torch.cat([Ji, Jw, Jv, Jp, Jm], dim=0)
-    r = torch.cat([ri, rw, rv, rp, rm], dim=0)
+    rows = [(Ji, ri), (Jw, rw), (Jv, rv), (Jp, rp), (Jm, rm)]
+    if inp.gnss_obs is not None:
+        from ..gnss.factors import linearize_clock_chain, linearize_gnss_psr_dopp
+
+        rows.append(linearize_gnss_psr_dopp(state, inp.gnss_obs, inp.gnss_ready, layout))
+        rows.append(linearize_clock_chain(state, inp.frame_dts, inp.gnss_ready,
+                                          inp.ddt_weight, layout))
+    if inp.anchor_pose is not None:
+        rows.append(linearize_pose_anchor(state, inp.anchor_pose, inp.anchor_active, layout))
+    J = torch.cat([a for a, _ in rows], dim=0)
+    r = torch.cat([b for _, b in rows], dim=0)
     return J * inp.free_mask[None, :], r
 
 
@@ -356,4 +377,17 @@ def assemble_residuals(state: WindowState, tracks: Tracks, inp: SolveInputs,
     # prior
     dx = boxminus(state, inp.prior.lin, layout)
     parts.append((inp.prior.r0 + inp.prior.J0 @ dx) * inp.prior.valid.to(dtype))
+
+    # GNSS
+    if inp.gnss_obs is not None:
+        from ..gnss.factors import clock_chain_residuals, gnss_psr_dopp_residuals
+
+        parts.append(gnss_psr_dopp_residuals(state, inp.gnss_obs, inp.gnss_ready))
+        parts.append(clock_chain_residuals(state, inp.frame_dts, inp.gnss_ready,
+                                           inp.ddt_weight))
+
+    # pose0 anchor
+    if inp.anchor_pose is not None:
+        ra = POSE_ANCHOR_SQRT_INFO * pose_anchor_residual_raw(state.poses[0], inp.anchor_pose)
+        parts.append(ra * inp.anchor_active.to(dtype))
     return torch.cat(parts)

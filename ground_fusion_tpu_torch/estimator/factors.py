@@ -15,10 +15,13 @@ Reference cost functions reproduced here:
 - Wheel:   ``factor/wheel_factor.h`` <6,7,7,7,1,1,1,1> (residual via
            ``wheel_integration_base.h:180-219``)
 - Plane:   ``factor/plane_factor.h:26-56``
+- Anchors: ``pose_anchor_factor.{h,cpp}``, ``initial_pose_factor.h``,
+           ``initial_bias_factor.h``, ``pos_vel_factor.{hpp,cpp}``,
+           ``motion_factor.h``
 
 All residuals return *whitened* values (pre-multiplied by sqrt information),
-matching how the reference feeds Ceres. The stereo projection forms and the
-unreferenced anchor factors of the JAX package are not ported yet.
+matching how the reference feeds Ceres. The stereo projection forms are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -197,7 +200,9 @@ def plane_factor(pose_i, ex_io, q_pw, z_pw, sqrt_info_diag):
 
 
 # ---------------------------------------------------------------------------
-# Pose anchor (factor/pose_anchor_factor.{h,cpp})
+# Anchor / prior factors
+# (factor/pose_anchor_factor.{h,cpp}, initial_pose_factor.h,
+#  initial_bias_factor.h, pos_vel_factor.{hpp,cpp}, motion_factor.h)
 # ---------------------------------------------------------------------------
 
 POSE_ANCHOR_SQRT_INFO = 120.0  # pose_anchor_factor.h:18
@@ -211,14 +216,62 @@ def pose_anchor_residual_raw(pose, anchor):
 
 
 def pose_anchor_factor(pose, anchor, sqrt_info=POSE_ANCHOR_SQRT_INFO):
-    """Whitened (r[6], J[6,6]) against δpose. Seeds the very first
-    marginalization prior, i.e. when no prior exists yet
-    (estimator.cpp:3562-3570)."""
+    """Whitened (r[6], J[6,6]) against δpose. The reference adds this on
+    pose0 at the first GNSS-enabled solve (estimator.cpp:2943-2951) and as
+    the SEED of the very first marginalization prior, i.e. when no prior
+    exists yet (estimator.cpp:3562-3570)."""
 
     def r_of(d):
         return sqrt_info * pose_anchor_residual_raw(pose_boxplus(pose, d), anchor)
 
     return _jac_and_value(r_of, torch.zeros(6, dtype=pose.dtype, device=pose.device))
+
+
+def initial_pose_factor(pose, init_pose, sqrt_info=1000.0):
+    """initial_pose_factor.h:22-54: r = 1000·[p − p̂; 2·vec(q̂⁻¹ ⊗ q)]
+    → (r[6], J[6,6]). (Shipped but unreferenced in the estimator build.)"""
+
+    def r_of(d):
+        p = pose_boxplus(pose, d)
+        r_p = trans(p) - trans(init_pose)
+        r_q = 2.0 * quat_mul(quat_conj(rot(init_pose)), rot(p))[1:4]
+        return sqrt_info * torch.cat([r_p, r_q])
+
+    return _jac_and_value(r_of, torch.zeros(6, dtype=pose.dtype, device=pose.device))
+
+
+def initial_bias_factor(sb, init_ba, init_bg, sqrt_info=1000.0):
+    """initial_bias_factor.h:24-52: r = (1/0.001)·[ba − b̂a; bg − b̂g] against
+    the 9-dim speed-bias tangent → (r[6], J[6,9])."""
+
+    def r_of(d):
+        s = sb + d
+        return sqrt_info * torch.cat([s[3:6] - init_ba, s[6:9] - init_bg])
+
+    return _jac_and_value(r_of, torch.zeros(9, dtype=sb.dtype, device=sb.device))
+
+
+def pos_vel_factor(pose_i, pose_j, sb_i, sb_j, dt, info_coeff=50.0):
+    """pos_vel_factor.cpp:5-46: r = 50·(p_j − p_i − ½(v_i + v_j)·Δt) against
+    tangent [δpose_i(6), δpose_j(6), δsb_i(9), δsb_j(9)] → (r[3], J[3,30])."""
+
+    def r_of(d):
+        pi = pose_boxplus(pose_i, d[0:6])
+        pj = pose_boxplus(pose_j, d[6:12])
+        vi = (sb_i + d[12:21])[0:3]
+        vj = (sb_j + d[21:30])[0:3]
+        return info_coeff * (trans(pj) - trans(pi) - 0.5 * (vi + vj) * dt)
+
+    return _jac_and_value(r_of, torch.zeros(30, dtype=pose_i.dtype, device=pose_i.device))
+
+
+def motion_factor(pose_i, pose_j, sb_i):
+    """motion_factor.h:21-56 parity stub. The reference's MotionFactor
+    (<2,7,7,9,3>, added when use_motion, estimator.cpp:3173) never writes its
+    residual and zeroes every Jacobian — a deliberate no-op in the released
+    code, kept as an explicit zero factor."""
+    kw = dict(dtype=pose_i.dtype, device=pose_i.device)
+    return torch.zeros(2, **kw), torch.zeros((2, 21), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -233,3 +286,12 @@ def cauchy_weight(sq_norm: Tensor, delta) -> Tensor:
     when re-evaluating dropped factors (marginalization_factor.cpp:46-77)."""
     d2 = delta * delta
     return torch.sqrt(d2 / (d2 + sq_norm))
+
+
+def huber_weight(sq_norm: Tensor, delta) -> Tensor:
+    """Row-reweighting sqrt(ρ'(s)) for the Huber loss (the
+    ``ceres::HuberLoss(1.0)`` on line factors, estimator.cpp:4465), in the
+    form that takes effect in the JAX package (the second of its two
+    definitions): weight 1 up to ‖r‖ = δ, δ/‖r‖ beyond."""
+    n = torch.sqrt(torch.clamp(sq_norm, min=1e-20))
+    return torch.sqrt(torch.where(n <= delta, torch.ones_like(n), delta / n))

@@ -136,8 +136,19 @@ def marginalize_old(
     # very first marginalization (no prior yet): seed with a pose0 anchor at
     # its current value instead of the prior factor (estimator.cpp:3562-3570)
     Ja, ra = linearize_pose_anchor(state, state.poses[0], ~inp.prior.valid, layout)
-    J = torch.cat([Ji, Jw, Jv, Jp, Jm, Ja], dim=0) * inp.free_mask[None, :]
-    r = torch.cat([ri, rw, rv, rp, rm, ra], dim=0)
+    rows = [(Ji, ri), (Jw, rw), (Jv, rv), (Jp, rp), (Jm, rm), (Ja, ra)]
+    if inp.gnss_obs is not None:
+        # GNSS factors of the dropped frame: slot-0 epochs + clock pair (0,1)
+        # (estimator.cpp:3398-3434)
+        from ..gnss.factors import linearize_clock_chain, linearize_gnss_psr_dopp
+
+        rows.append(linearize_gnss_psr_dopp(
+            state, inp.gnss_obs, inp.gnss_ready, layout, slot_filter=only0))
+        rows.append(linearize_clock_chain(
+            state, inp.frame_dts, inp.gnss_ready, inp.ddt_weight, layout,
+            pair_filter=only1))
+    J = torch.cat([a for a, _ in rows], dim=0) * inp.free_mask[None, :]
+    r = torch.cat([b for _, b in rows], dim=0)
 
     Jc, Jl = J[:, :nx], J[:, nx : nx + ml]
     Hcc = Jc.T @ Jc

@@ -8,7 +8,7 @@ step branches on it in Python and computes one marginalization only; every
 other gate stays a device tensor.
 
 Only the per-frame step is ported; the packed, burst, ingest and fleet
-step constructors of the JAX package, its GNSS flags and its line blocks are not.
+step constructors of the JAX package and its line blocks are not.
 """
 
 from __future__ import annotations
@@ -64,6 +64,13 @@ class StepFlags(NamedTuple):
                                           # solve (processIMU, estimator.cpp:
                                           # 743-783); the slide leaves only a
                                           # copy of the previous pose there
+    gnss_ready: Tensor | None = None      # [] bool — GNSS-VI aligned
+    frame_dts: Tensor | None = None       # [F] Δt between adjacent frames
+    fix_yaw_enu: Tensor | None = None     # [] bool — low-speed yaw freeze
+                                          # (estimator.cpp:2904-2930)
+    first_gnss_opt: Tensor | None = None  # [] bool — first GNSS-enabled
+                                          # solve anchors pose0 at its entry
+                                          # value (estimator.cpp:2943-2951)
 
 
 class EstimatorCore(NamedTuple):
@@ -74,6 +81,7 @@ class EstimatorCore(NamedTuple):
     imu_buf: ImuWindowBuffer
     wheel_buf: WheelWindowBuffer
     prior: MargPrior
+    gnss_obs: object = None    # gnss.factors.GnssObsWindow when GNSS is enabled
 
 
 def base_free_mask(cfg: Config, layout: StateLayout) -> np.ndarray:
@@ -102,7 +110,6 @@ def check_supported(cfg: Config) -> None:
     """Raise for configuration switches whose modules are not ported yet."""
     pending = [
         (cfg.map.enabled, "map", "dense map and meshing"),
-        (cfg.gnss.enabled, "gnss", "GNSS"),
         (cfg.use_line, "use_line", "lines"),
         (cfg.use_yolo, "use_yolo", "detector, calibration, other camera models"),
         (bool(cfg.burst_chunk), "burst_chunk", "execution modes (burst, live, fleet)"),
@@ -112,6 +119,20 @@ def check_supported(cfg: Config) -> None:
             raise NotImplementedError(
                 f"config switch {name!r} is not ported to ground_fusion_tpu_torch yet "
                 f"(ROADMAP.md, queue 1: {item})")
+
+
+def _slide_gnss_old(o):
+    """Drop epoch slot 0: every slot moves down one, the last is cleared."""
+    if o is None:
+        return None
+    return type(o)(*[torch.cat([a[1:], torch.zeros_like(a[:1])]) for a in o])
+
+
+def _slide_gnss_new(o):
+    """Second-new slide: slot F-1 moves into F-2, F-1 is cleared."""
+    if o is None:
+        return None
+    return type(o)(*[torch.cat([a[:-2], a[-1:], torch.zeros_like(a[-1:])]) for a in o])
 
 
 def make_window_step(cfg: Config, device=None):
@@ -140,6 +161,7 @@ def _build_step(cfg: Config, device):
                 n12=wheel_noise_cov(cfg.wheel.vel_n, cfg.wheel.gyr_n, **kw),
                 g=torch.tensor([0.0, 0.0, cfg.imu.g_norm], **kw),
                 base_mask=base_mask.to(**kw),
+                ddt_weight=torch.tensor(cfg.gnss.ddt_weight, **kw),
                 frame_cols=(torch.arange(layout.total, device=device) < PER_FRAME * f),
                 params=SolverParams(
                     sqrt_info_scale=torch.tensor(cfg.solver.focal / 1.5, **kw),
@@ -190,6 +212,11 @@ def _build_step(cfg: Config, device):
         moving = torch.where(stationary, 0.0, 1.0).to(dtype)
         state = state._replace(sbs=torch.cat([state.sbs[:, 0:3] * moving, state.sbs[:, 3:]], dim=1))
         free_mask = torch.where(c["frame_cols"], c["base_mask"] * moving, c["base_mask"])
+        if cfg.gnss.enabled and flags.fix_yaw_enu is not None:
+            yaw_free = torch.where(flags.fix_yaw_enu, 0.0, 1.0).to(dtype)
+            free_mask = torch.cat([free_mask[: layout.yaw_enu],
+                                   (free_mask[layout.yaw_enu] * yaw_free)[None],
+                                   free_mask[layout.yaw_enu + 1 :]])
 
         if flags.propagate_newest is not None:
             # seed slot F-1 by propagating F-2 through the newest IMU interval
@@ -232,6 +259,7 @@ def _build_step(cfg: Config, device):
             bad = moving_consistency_check(state, tracks, focal=cfg.solver.focal)
             tracks = remove_outliers(tracks, bad)
 
+        use_gnss = cfg.gnss.enabled and core.gnss_obs is not None
         inp = SolveInputs(
             imu_pre=imu_pre,
             imu_valid=flags.imu_valid,
@@ -243,6 +271,13 @@ def _build_step(cfg: Config, device):
             g=g,
             free_mask=free_mask,
         )
+        if use_gnss:
+            first = (flags.first_gnss_opt if flags.first_gnss_opt is not None
+                     else torch.zeros((), dtype=torch.bool, device=device))
+            inp = inp._replace(
+                gnss_obs=core.gnss_obs, gnss_ready=flags.gnss_ready,
+                frame_dts=flags.frame_dts, ddt_weight=c["ddt_weight"],
+                anchor_pose=state.poses[0], anchor_active=first)
 
         state_before = state
         state, tracks, cost = solve_window(
@@ -250,7 +285,17 @@ def _build_step(cfg: Config, device):
             num_iters=cfg.solver.max_iters, method=cfg.solver.method,
             linear_solver=cfg.solver.linear_solver,
         )
-        state = reanchor_yaw(state_before, state)
+        anchored = reanchor_yaw(state_before, state)
+        if use_gnss:
+            # once GNSS-VI alignment has installed the ENU yaw and anchor,
+            # the GNSS rows hold the gauge; re-anchoring the window alone
+            # would undo at every step the yaw they solve for (the JAX
+            # package re-anchors regardless; ROADMAP queue 3)
+            keep = flags.gnss_ready
+            anchored = anchored._replace(
+                poses=torch.where(keep, state.poses, anchored.poses),
+                sbs=torch.where(keep, state.sbs, anchored.sbs))
+        state = anchored
 
         # the host knows the keyframe decision: compute one branch only
         if flags.marg_old:
@@ -264,6 +309,7 @@ def _build_step(cfg: Config, device):
                 imu_buf=slide_old_imu_buffer(core.imu_buf),
                 wheel_buf=slide_old_wheel_buffer(core.wheel_buf),
                 prior=prior,
+                gnss_obs=_slide_gnss_old(core.gnss_obs),
             )
         else:
             prior = marginalize_second_new(state, core.prior, layout)
@@ -273,6 +319,7 @@ def _build_step(cfg: Config, device):
                 imu_buf=slide_new_imu_buffer(core.imu_buf),
                 wheel_buf=slide_new_wheel_buffer(core.wheel_buf),
                 prior=prior,
+                gnss_obs=_slide_gnss_new(core.gnss_obs),
             )
         # device-side failure flag (failureDetection's active bias checks,
         # estimator.cpp:2847-2888)

@@ -10,10 +10,12 @@ on the device in :func:`~.estimator.step.make_window_step`'s step.
 Device↔host traffic per frame is two fetches — the landmark table's masks
 before the frame is written (keyframe gate + slot recycling) and the step's
 packed outputs after it — plus the uploads of the new interval and the new
-observations.
+observations (with GNSS: one GNSS epoch slot and one packed flag upload).
+GNSS epochs are gated and reduced on the host in float64
+(:mod:`.gnss.ingest`); only the reduced, small quantities reach the device.
 
-Only the per-frame path is ported: the burst, live and fleet modes, GNSS,
-lines and checkpointing of the JAX package are not, and the sensor queues are
+Only the per-frame path is ported: the burst, live and fleet modes, lines
+and checkpointing of the JAX package are not, and the sensor queues are
 plain Python lists (the C++ ring-buffer ingest is not ported yet).
 """
 
@@ -47,6 +49,8 @@ from .estimator.step import EstimatorCore, StepFlags, make_window_step
 from .estimator.window import empty_state, empty_tracks, slide_old_state, slide_old_tracks
 from .geometry.se3 import pose as make_pose, pose_compose, pose_inverse
 from .geometry.so3 import mat_to_quat, quat_to_mat
+from .gnss.factors import SLOT_SCALARS, SLOT_VECTORS, empty_gnss_obs
+from .gnss.ingest import GnssIngest
 from .preintegration.imu import noise_cov
 from .preintegration.wheel import wheel_noise_cov
 from .utils import np_quat
@@ -84,6 +88,16 @@ class Estimator:
         self.step_fn, self.layout = make_window_step(cfg, self.device)
         self.f = cfg.num_frames
         self.core = self._empty_core()
+        self.gnss = GnssIngest(cfg) if cfg.gnss.enabled else None
+        self.gnss_aligned = False
+        self.gnss_aligned_at: Optional[float] = None   # newest frame time at alignment
+        self._first_gnss_opt = True   # estimator.cpp:152 (reset by clearState)
+        self._pending_gnss: Optional[tuple] = None   # (epoch time, obs list)
+        # raw float64 epochs received pre-alignment, installed at alignment
+        self._gnss_pre_epochs: list[tuple[float, list]] = []
+        # host copy of the state's anchor column (the ENU delta from the
+        # float64 expansion anchor), refreshed by every step's packed fetch
+        self._anc_delta = np.zeros(3)
         self.solver_flag = self.INITIAL
         self.frame_count = 0              # frames currently occupied (fill phase)
         self.ts: list[float] = []
@@ -116,6 +130,8 @@ class Estimator:
             imu_buf=empty_imu_buffer(f, cfg.solver.max_imu_per_interval, **self._kw()),
             wheel_buf=empty_wheel_buffer(f, cfg.solver.max_wheel_per_interval, **self._kw()),
             prior=empty_prior(self.layout, f, **self._kw()),
+            gnss_obs=(empty_gnss_obs(f, cfg.gnss.max_sats, **self._kw())
+                      if cfg.gnss.enabled else None),
         )
 
     def _initial_state(self):
@@ -201,6 +217,14 @@ class Estimator:
             # rosNodeTest.cpp:93-156 — wheel gyros are usually the worst axis)
             gyr[2] = self._fp["gyr"][2] - self._fp["bg"][2]
         self.wheel_q.append((t, np.asarray(vel, np.float64), gyr))
+
+    def input_gnss(self, t: float, obs_list: list[dict]) -> None:
+        """One GNSS epoch (list of per-satellite obs dicts, see
+        gnss.ingest). Attached to the window at the bracketing-frame slot
+        with its epoch time (the reference's time-pulse sync,
+        rosNodeTest.cpp GNSS callbacks + estimator.cpp:3193-3207)."""
+        if self.gnss is not None:
+            self._pending_gnss = (t, obs_list)
 
     # ------------------------------------------------------- interval building
 
@@ -531,7 +555,8 @@ class Estimator:
     def reboot(self):
         """clearState + setParameter equivalent: reset window state, tracks,
         prior and mode; sensor queues and tracker ids survive (the reference
-        keeps subscriptions alive and re-enters INITIAL)."""
+        keeps subscriptions alive and re-enters INITIAL; the GNSS ingest
+        keeps its anchor, track counts and epochs)."""
         self.core = self._empty_core()
         self.solver_flag = self.INITIAL
         self.frame_count = 0
@@ -542,7 +567,152 @@ class Estimator:
         self._fp_seed = None
         self._last_sb = None
         self._last_out_failed = None
+        self.gnss_aligned = False
+        self.gnss_aligned_at = None
+        self._first_gnss_opt = True   # estimator.cpp:152
+        self._gnss_pre_epochs = []
+        self._anc_delta = np.zeros(3)
         self.reboots += 1
+
+    # ------------------------------------------------------------------ GNSS
+
+    def anchor_ecef(self) -> Optional[np.ndarray]:
+        """Absolute ECEF anchor (float64 expansion anchor + the state's
+        ENU delta column), or None before GNSS-VI alignment."""
+        if self.gnss is None or self.gnss.anc0 is None:
+            return None
+        return self.gnss.anchor_ecef(self.core.state.anc_ecef.cpu().numpy())
+
+    def _attach_gnss_epoch(self):
+        """Gate + store the pending epoch into the window table at its
+        bracketing-frame slot. The reference interpolates the state between
+        the two frames that straddle the epoch time (``estimator.cpp:
+        3193-3207``: lower_idx from Headers vs obs time, ts_ratio =
+        (upper−obs)/(upper−lower)); slot k of the table is defined as
+        "bracketed by frames k and k+1", so the epoch lands at the lower
+        frame with its true interpolation ratio."""
+        if self.gnss is None or self._pending_gnss is None:
+            return
+        t_obs, obs_list = self._pending_gnss
+        anc_abs = self.gnss.anchor_ecef(self._anc_delta) if self.gnss_aligned else None
+        obs = self.gnss.process_epoch(obs_list, self.gnss_aligned, anc_abs)
+        self._pending_gnss = None
+        if not obs or self.core.gnss_obs is None or len(self.ts) < 2:
+            return
+        if not self.gnss_aligned:
+            # no expansion anchor yet: keep the raw (float64) epoch on the
+            # host and install it into the window table at alignment
+            # (_install_window_epochs) — the factors are gnss_ready-gated
+            # until then anyway
+            self._gnss_pre_epochs.append((float(t_obs), obs))
+            return
+        self._write_gnss_slot(float(t_obs), obs, anc_abs)
+
+    def _write_gnss_slot(self, t_obs: float, obs: list, anc_abs) -> None:
+        """Reduce one epoch on the host and write it into window slot
+        ``lower``: the slot's fields are packed side by side into one array,
+        uploaded in one copy, and index-copied into each field."""
+        ts = np.asarray(self.ts, np.float64)
+        lower = int(np.searchsorted(ts, t_obs, side="right") - 1)
+        lower = max(0, min(lower, len(ts) - 2, self.f - 2))
+        denom = max(float(ts[lower + 1] - ts[lower]), 1e-9)
+        ratio = float(np.clip((ts[lower + 1] - t_obs) / denom, 0.0, 1.0))
+        for o in obs:
+            o["ratio"] = ratio
+        slot = self.gnss.build_slot(obs, anc_abs)
+        s = len(slot["valid"])
+        packed = np.concatenate(
+            [np.asarray(slot[k], np.float64).reshape(s, 3) for k in SLOT_VECTORS]
+            + [np.stack([slot[k] for k in SLOT_SCALARS + ("sys", "valid")], axis=1)
+               .astype(np.float64)], axis=1)
+        dev = self._upload(packed)                          # [S, 20], one copy
+        idx = torch.tensor([lower], device=self.device)
+        g = self.core.gnss_obs
+        parts = dict(zip(SLOT_VECTORS, dev[:, 0:12].reshape(s, 4, 3).unbind(1)))
+        parts.update(zip(SLOT_SCALARS + ("sys", "valid"), dev[:, 12:].unbind(1)))
+        parts["valid"] = parts["valid"] > 0.5
+        upd = {k: getattr(g, k).index_copy(0, idx, v.to(getattr(g, k).dtype)[None])
+               for k, v in parts.items()}
+        self.core = self.core._replace(gnss_obs=g._replace(**upd))
+
+    def _try_gnss_align(self):
+        """GNSSVIAlign trigger (estimator.cpp:1928-2043): once NON_LINEAR
+        with enough filtered epochs, run coarse SPP + yaw GN + anchor
+        refinement and install the result into the state."""
+        if self.gnss is None or self.gnss_aligned:
+            return
+        epochs = [e for e in self.gnss.epochs if len(e) >= 4]
+        if len(epochs) < 5:
+            return
+        from .gnss.align import gnss_vi_align
+
+        st = self.core.state
+        n = min(len(self.gnss.epochs), self.f)
+        win = torch.cat([st.poses[-n:, 0:3], st.sbs[-n:, 0:3]], dim=1)
+        win = win.cpu().numpy().astype(np.float64)           # one fetch
+        eps = self.gnss.epochs[-n:]
+        anc, yaw, rcv_dt, ok = gnss_vi_align(
+            win[:, 0:3], win[:, 3:6], eps, min_speed=self.cfg.gnss.low_speed_yaw_fix)
+        if not ok:
+            return
+        # install the float64 expansion anchor; the state's anchor column is
+        # the ENU DELTA from it (zero at alignment) — absolute ECEF math in
+        # float32 quantizes at metres, so it never reaches the device
+        # (gnss/factors.GnssObsWindow)
+        self.gnss.set_anchor(anc)
+        # before alignment no factor has touched the GNSS columns (clocks,
+        # yaw, anchor): the prior's only hold on them is its factorization's
+        # ridge (64·eps·max diag, ~1e3 in float32), which would drag the
+        # values installed here back to their pre-alignment zeros. The JAX
+        # package keeps that hold (ROADMAP queue 3); the reference's prior
+        # has no such columns at all, and neither has the port's after this.
+        lay = self.layout
+        prior = self.core.prior
+        J0 = torch.cat([prior.J0[:, : lay.gnss_dt], torch.zeros_like(prior.J0[:, lay.gnss_dt :])],
+                       dim=1)
+        self.core = self.core._replace(
+            state=st._replace(
+                anc_ecef=torch.zeros(3, **self._kw()),
+                yaw_enu=torch.tensor(yaw, **self._kw()),
+                rcv_dt=self._upload(rcv_dt).repeat(self.f, 1),
+            ),
+            prior=prior._replace(J0=J0),
+        )
+        self._anc_delta = np.zeros(3)
+        self.gnss_aligned = True
+        self.gnss_aligned_at = self.ts[-1]
+        self._install_window_epochs(anc)
+
+    def _install_window_epochs(self, anc) -> None:
+        """Install the raw epochs received BEFORE alignment into the window
+        table, reduced against the freshly-installed float64 anchor — the
+        role the reference's per-factor atmosphere/weight recomputation plays
+        (gnss_psr_dopp_factor.cpp:78-89): pre-alignment slots must not keep
+        placeholder values. Raw float64 observations were kept on the host
+        precisely so no float32-truncated pseudorange ever feeds a reduction."""
+        eps = [e for e in self._gnss_pre_epochs
+               if self.ts and self.ts[0] <= e[0] <= self.ts[-1] + 1e-9]
+        self._gnss_pre_epochs = []
+        for t_obs, obs in eps:
+            self._write_gnss_slot(t_obs, obs, np.asarray(anc, np.float64))
+
+    def _gnss_flags(self) -> dict:
+        """The step's GNSS flags, from one upload: the frame intervals in
+        float64 on the host, the aligned gate, the low-speed yaw freeze (the
+        newest speed is the previous step's fetched sb, which IS sbs[F-1]
+        after either slide) and the first-GNSS-solve anchor."""
+        f = self.f
+        last_sb = self._last_sb
+        if last_sb is None:
+            last_sb = self.core.state.sbs[f - 1].cpu().numpy().astype(np.float64)
+        speed = float(np.linalg.norm(last_sb[0:3]))
+        frame_dts = np.diff(np.asarray(self.ts, np.float64), prepend=self.ts[0])
+        host = np.concatenate([frame_dts[:f], [float(self.gnss_aligned),
+                                               float(speed < self.cfg.gnss.low_speed_yaw_fix),
+                                               float(self._first_gnss_opt)]])
+        dev = self._upload(host)
+        return dict(frame_dts=dev[:f], gnss_ready=dev[f] > 0.5, fix_yaw_enu=dev[f + 1] > 0.5,
+                    first_gnss_opt=dev[f + 2] > 0.5)
 
     def _run_step(self, marg_old: bool, propagate_newest: bool = False):
         f = self.f
@@ -550,6 +720,12 @@ class Estimator:
         # anomaly/stationarity gates are computed inside the step from the
         # window buffers (estimator/gates.device_frame_gates); the flags
         # below are host OVERRIDES only
+        gnss_flags = {}
+        if self.gnss is not None:
+            self._attach_gnss_epoch()
+            self._try_gnss_align()
+            gnss_flags = self._gnss_flags()
+        self._first_gnss_opt = False
         interval = torch.arange(f, device=dev) >= 1
         flags = StepFlags(
             marg_old=bool(marg_old),
@@ -558,17 +734,22 @@ class Estimator:
             imu_valid=interval,
             td_obs=torch.zeros(f, **self._kw()),
             propagate_newest=torch.full((), bool(propagate_newest), dtype=torch.bool, device=dev),
+            **gnss_flags,
         )
         core_new, out = self.step_fn(self.core, flags)
         self.core = core_new
         # ONE packed device→host fetch for everything the host needs from
         # this step (pose, speed/bias vector, failure flag); it also ends the
         # step's device work, so a host clock around this call times the step
-        packed = torch.cat([out["pose"], out["sb"], out["failed"].to(self.dtype)[None]])
-        packed = packed.cpu().numpy().astype(np.float64)
+        parts = [out["pose"], out["sb"], out["failed"].to(self.dtype)[None]]
+        if self.gnss is not None:
+            parts.append(core_new.state.anc_ecef)
+        packed = torch.cat(parts).cpu().numpy().astype(np.float64)
         pose = packed[0:7]
         self._last_sb = packed[7:16]
         self._last_out_failed = bool(packed[16] > 0.5)
+        if self.gnss is not None:
+            self._anc_delta = packed[17:20]
         self._fp = None   # fastPredict re-seeds from the fresh optimized state
         self._fp_seed = (pose, self._last_sb)
         self.trajectory.append((self.ts[-1], pose))

@@ -3,10 +3,11 @@
 The one-object equivalent of the reference's ROS processes (``vins_node`` +
 ``dense_map_node`` — SURVEY §1 L0/L5): images go through the KLT front-end,
 features into the sliding-window estimator, keyframes into the BoW/pose-graph
-loop closure. Everything is in-process — module-to-module calls replace ROS
-pub/sub (SURVEY §2 parallelism table). The dense map, GPS fusion, lines and
-the detector of the JAX package are not ported yet; a config that turns one
-of them on raises at construction.
+loop closure, solved poses and NavSatFix fixes into the GPS/VIO global
+fusion. Everything is in-process — module-to-module calls replace ROS
+pub/sub (SURVEY §2 parallelism table). The dense map, lines and the detector
+of the JAX package are not ported yet; a config that turns one of them on
+raises at construction.
 
 Run from a dataset directory::
 
@@ -68,6 +69,7 @@ class GroundFusionSystem:
             self.pose_graph = PoseGraph(cfg, cam_focal=cfg.camera.fx, device=self.device)
             self._kf_index = 0
             self._opt_edges = 0
+        self.global_fusion = None     # built by the first GPS fix
 
         self.stats = StageStats()
         self.calib_dump = CalibrationDump(out_dir)
@@ -126,6 +128,17 @@ class GroundFusionSystem:
         self._dr_ba, self._dr_bg = sb[3:6], sb[6:9]
         self._dr_sw = (float(s_wheel[0]), float(s_wheel[1]), float(s_wheel[2]))
 
+    def input_gnss(self, t, obs):
+        self.estimator.input_gnss(t, obs)
+
+    def input_gps_fix(self, t, lat, lon, alt, acc):
+        """NavSatFix path → global fusion layer (globalOptNode.cpp)."""
+        if self.global_fusion is None:
+            from .global_layers.global_fusion import GlobalFusion
+
+            self.global_fusion = GlobalFusion(device=self.device)
+        self.global_fusion.input_gps(t, lat, lon, alt, acc)
+
     def input_image(self, t, img: np.ndarray, depth: Optional[np.ndarray] = None,
                     img_right: Optional[np.ndarray] = None
                     ) -> Optional[np.ndarray]:
@@ -146,6 +159,8 @@ class GroundFusionSystem:
         if pose is not None:
             s_wheel = self.calib_dump.append(t, self.estimator.core.state)
             self._refresh_dr_bias(s_wheel)
+            if self.global_fusion is not None:
+                self.global_fusion.input_odom(t, pose)
             is_kf = bool(self.estimator.keyframe_flags
                          and self.estimator.keyframe_flags[-1])
             self._publish("odometry", t=t, pose=np.asarray(pose),
@@ -291,6 +306,13 @@ class GroundFusionSystem:
         est.write_tum(os.path.join(self.out_dir, "vio.txt"))
         if self.pose_graph is not None:
             self.pose_graph.write_tum(os.path.join(self.out_dir, "loop.txt"))
+        if self.global_fusion is not None:
+            # one relaxation before the write: the JAX package's system never
+            # calls optimize, so its global.txt is the odometry under an
+            # identity alignment; the reference optimizes on every fix
+            # (globalOpt.cpp) — ROADMAP queue 3
+            self.global_fusion.optimize()
+            self.global_fusion.write_tum(os.path.join(self.out_dir, "global.txt"))
         self.dead_reckoning.write_tum(
             os.path.join(self.out_dir, "pure_imu.txt"),
             os.path.join(self.out_dir, "pure_wheel.txt"),

@@ -6,9 +6,9 @@ a value is carried across by walking the names: a tuple of numpy arrays (or
 any object with ``_fields``) goes in, the port's NamedTuple of tensors comes
 out, and back. This module imports neither package's array library beyond
 ``torch``; the caller fetches the JAX arrays to the host first. Fields that
-this port does not have yet (GNSS tables, line tracks, GNSS step flags) are
-dropped on the way in and come back as ``None``-free dictionaries on the way
-out.
+this port does not have yet (line tracks) are dropped on the way in. The
+estimator's GNSS host state (expansion anchor, track counts, epochs, gates)
+is carried by :func:`gnss_host_state_from`.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from ..estimator.buffers import ImuWindowBuffer, WheelWindowBuffer
 from ..estimator.step import EstimatorCore, StepFlags
 from ..estimator.window import Tracks, WindowState
 from ..global_layers.pose_graph import Keyframe
+from ..gnss.factors import GnssObsWindow
 from ..preintegration.imu import ImuPreint
 from ..preintegration.wheel import WheelPreint
 
@@ -83,19 +84,56 @@ def core_from_numpy(core_np, device, dtype) -> EstimatorCore:
         imu_buf=imu_buffer_from_numpy(_field(core_np, "imu_buf"), device, dtype),
         wheel_buf=wheel_buffer_from_numpy(_field(core_np, "wheel_buf"), device, dtype),
         prior=prior_from_numpy(_field(core_np, "prior"), device, dtype),
+        gnss_obs=gnss_obs_from_numpy(_optional(core_np, "gnss_obs"), device, dtype),
     )
 
 
+def _optional(src, name):
+    if isinstance(src, dict):
+        return src.get(name)
+    return getattr(src, name, None)
+
+
+def gnss_obs_from_numpy(src, device, dtype):
+    """A GNSS observation table (same field names) → the port's, or None."""
+    return None if src is None else _flat(GnssObsWindow, src, device, dtype)
+
+
 def flags_from_numpy(flags_np, device, dtype) -> StepFlags:
-    prop = _field(flags_np, "propagate_newest")
+    opt = {n: _optional(flags_np, n) for n in
+           ("propagate_newest", "gnss_ready", "frame_dts", "fix_yaw_enu", "first_gnss_opt")}
     return StepFlags(
         marg_old=bool(np.asarray(_field(flags_np, "marg_old"))),
         stationary=_leaf(_field(flags_np, "stationary"), device, dtype),
         wheel_valid=_leaf(_field(flags_np, "wheel_valid"), device, dtype),
         imu_valid=_leaf(_field(flags_np, "imu_valid"), device, dtype),
         td_obs=_leaf(_field(flags_np, "td_obs"), device, dtype),
-        propagate_newest=None if prop is None else _leaf(prop, device, dtype),
+        **{n: None if v is None else _leaf(v, device, dtype) for n, v in opt.items()},
     )
+
+
+def _copy_epoch(epoch: list) -> list:
+    return [{k: np.array(v) if isinstance(v, np.ndarray) else v for k, v in o.items()}
+            for o in epoch]
+
+
+def gnss_host_state_from(src, dst) -> None:
+    """Carry an estimator's GNSS host state (either package's) into the
+    port's ``dst`` in place: the float64 expansion anchor ``anc0``/``R0``,
+    the per-satellite track counts, the filtered epochs, the alignment gate,
+    the first-GNSS-solve flag and the raw pre-alignment epochs. The window
+    tables themselves travel with the core (:func:`core_from_numpy`); the
+    state's anchor column is read here too, for the host's copy of it."""
+    sg, dg = src.gnss, dst.gnss
+    dg.anc0 = None if sg.anc0 is None else np.array(sg.anc0, np.float64)
+    dg.R0 = None if sg.R0 is None else np.array(sg.R0, np.float64)
+    dg.track_count = dict(sg.track_count)
+    dg.epochs = [_copy_epoch(e) for e in sg.epochs]
+    dst.gnss_aligned = bool(src.gnss_aligned)
+    dst._first_gnss_opt = bool(src._first_gnss_opt)
+    dst._gnss_pre_epochs = [(t, _copy_epoch(e)) for t, e in src._gnss_pre_epochs]
+    anc = src.core.state.anc_ecef
+    dst._anc_delta = np.array(anc.cpu() if isinstance(anc, torch.Tensor) else anc, np.float64)
 
 
 def to_numpy(x):

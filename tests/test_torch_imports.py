@@ -52,7 +52,8 @@ def _no_gpu():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "Estimator", "make_window_step",
                                    "FeatureTracker", "GroundFusionSystem", "PoseGraph",
-                                   "KeyframeDatabase", "DBoW2Vocabulary", "load_binary", "cli"])
+                                   "KeyframeDatabase", "DBoW2Vocabulary", "load_binary",
+                                   "GlobalFusion", "cli"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     """No 'cuda if available else cpu': with no device argument every entry
     point resolves to the GPU, and raises on a machine that has none."""
@@ -63,6 +64,7 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     from ground_fusion_tpu_torch.frontend.tracker import FeatureTracker
     from ground_fusion_tpu_torch.global_layers.bow import KeyframeDatabase
     from ground_fusion_tpu_torch.global_layers.dbow_vocab import DBoW2Vocabulary
+    from ground_fusion_tpu_torch.global_layers.global_fusion import GlobalFusion
     from ground_fusion_tpu_torch.global_layers.pose_graph import PoseGraph
     from ground_fusion_tpu_torch.pipeline import Estimator
     from ground_fusion_tpu_torch.system import GroundFusionSystem
@@ -83,6 +85,7 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
         "KeyframeDatabase": lambda: KeyframeDatabase(capacity=4, n_words=16),
         "DBoW2Vocabulary": lambda: DBoW2Vocabulary(*tree, n_words=2),
         "load_binary": lambda: DBoW2Vocabulary.load_binary(vocab_path),
+        "GlobalFusion": lambda: GlobalFusion(),
     }
     if entry == "cli":
         r = subprocess.run(
@@ -118,14 +121,14 @@ def test_lk_level_on_cpu_uses_the_plain_version_and_counts_no_launch():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("switch", ["map", "gnss", "use_line", "use_yolo", "burst_chunk"])
+@pytest.mark.parametrize("switch", ["map", "use_line", "use_yolo", "burst_chunk"])
 def test_unported_switches_raise_by_name(switch, tmp_path):
     import dataclasses
 
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = Config()
-    if switch in ("map", "gnss"):
+    if switch == "map":
         cfg = dataclasses.replace(cfg, **{switch: dataclasses.replace(getattr(cfg, switch), enabled=True)})
     elif switch == "burst_chunk":
         cfg = dataclasses.replace(cfg, burst_chunk=8)
@@ -133,6 +136,23 @@ def test_unported_switches_raise_by_name(switch, tmp_path):
         cfg = dataclasses.replace(cfg, **{switch: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GroundFusionSystem(cfg, str(tmp_path), device="cpu")
+
+
+def test_m2dgrp_config_builds_with_gnss(tmp_path):
+    """``configs/m2dgrp.yaml`` (tight GNSS) builds in the port: the estimator
+    carries a GNSS table and ingest, the system waits for GPS fixes."""
+    from ground_fusion_tpu_torch.estimator.step import check_supported
+    from ground_fusion_tpu_torch.pipeline import Estimator
+    from ground_fusion_tpu_torch.system import GroundFusionSystem
+
+    cfg = load_yaml(os.path.join(ROOT, "configs", "m2dgrp.yaml"))
+    assert cfg.gnss.enabled
+    check_supported(cfg)
+    est = Estimator(cfg, device="cpu")
+    assert est.gnss is not None and not est.gnss_aligned
+    assert tuple(est.core.gnss_obs.valid.shape) == (cfg.num_frames, cfg.gnss.max_sats)
+    system = GroundFusionSystem(cfg, str(tmp_path), device="cpu")
+    assert system.global_fusion is None and system.estimator.gnss is not None
 
 
 def test_unported_camera_models_raise_by_name():
