@@ -60,9 +60,27 @@ Phases (any failure ends the run with a non-zero exit code):
               a finite pose per solved frame; and the float32
               pseudorange/Doppler rows at ground truth stay below 5 mm on
               the card. Prints per-stage times beside phase 4's.
+8. path C   — render a 40-frame sequence at the camera and mounts of
+              ``configs/groundchallenge.yaml`` in which the vehicle is
+              moving from the first frame, and run it through
+              ``__main__.run`` on the GPU with a copy of that config with the
+              wheel off, the stationary gate closed, loop closure and the
+              dense map with its TSDF mesh on: the visual initializer (SfM,
+              path C) starts the estimator and no other initializer runs;
+              ATE, no reboot, every map and TSDF tensor on the GPU,
+              ``map.ply`` and ``mesh.ply`` written, one ``lk_track`` launch
+              per tracked frame; prints the first pose's frame,
+              ``sfm_construct`` ms, the ``map`` stage per keyframe.
+9. map      — the rebuild scenario of ``tests/test_mapping.py`` at 480x640
+              (four keyframes mapped at drifting poses, then re-anchored
+              at the true ones; 2^20 voxel slots, a 128^3 TSDF) on the GPU
+              and on the CPU: counts and the exported voxel set equal, sums
+              and TSDF within their bounds, the rebuild's error under the
+              test's bounds; prints ms per insert, integrate, rebuild and
+              mesh extraction and the peak device memory.
 Then the card's line, the ``{"kernels": [...]}`` line (one entry per kernel
 entry point: ``lk_level``, ``lk_track``, ``hamming_matrix``,
-``hamming_match``; launches counted on the paths of phases 4, 5 and 7), and
+``hamming_match``; launches counted on the paths of phases 4, 5, 7 and 8), and
 the last line ``{"ok": true, "device": {...}}``.
 
 The script imports only the port (never JAX or the JAX package), needs no
@@ -1528,6 +1546,358 @@ def phase_gnss(torch, work_dir, main_times):
     return counts
 
 
+# --------------------------------------------------------------------------- 8
+
+
+# The path-C drive: the smoke sequence's camera, mounts and speed (0.45 m/s
+# on the 3 m circle), but the vehicle is already moving at t = 0 (no
+# standing start). The visual initializer's pivot search needs 20
+# correspondences and a mean parallax above 30/460 between a window frame and
+# the newest; over the window's 10 intervals the tracked features move by
+# ~0.12 in normalized coordinates, ~50 of them seen in both (port's tracker
+# on the CPU).
+# The blobs' depths are 7x7-pixel patches, far smaller than a 7.8 cm TSDF
+# voxel, so the drive's depth images also carry an untextured wall behind the
+# landmarks (radius 6 m about the circle's centre): the surface the TSDF
+# meshes and most of the map's points.
+PATH_C_FRAMES = 40
+PATH_C_SIM = dict(omega=0.15, frame_rate=30.0)
+PATH_C_WALL_M = 6.0
+PATH_C_MIN_POSES = 20
+
+
+def path_c_config(work_dir: str) -> str:
+    """``configs/groundchallenge.yaml`` as a copy in the work directory, with
+    the wheel off and the stationary gate closed (so that only the visual
+    initializer, path C, can start the estimator), loop closure and the
+    dense map with its TSDF mesh on."""
+    with open(CONFIG_PATH) as src:
+        text = src.read()
+    check("wheel:\n  enabled: true" in text, "path C: the config's wheel block moved")
+    text = text.replace("wheel:\n  enabled: true", "wheel:\n  enabled: false")
+    text = text.rstrip("\n") + ("\ninit:\n  stationary_acc_var: 0.0\nloop:\n  enabled: true\n"
+                               "map:\n  enabled: true\n  mesh: true\n")
+    path = os.path.join(work_dir, "groundchallenge_path_c.yaml")
+    with open(path, "w") as dst:
+        dst.write(text)
+    return path
+
+
+def render_path_c_sequence(seq_dir: str, n_frames: int = PATH_C_FRAMES) -> str:
+    """The path-C drive, from its seed: ``n_frames`` frames at the camera and
+    mounts of ``configs/groundchallenge.yaml``, moving from the first frame."""
+    from ground_fusion_tpu_torch.config import load_yaml
+    from ground_fusion_tpu_torch.sim.render import Mounts, render_sequence
+    from ground_fusion_tpu_torch.sim.synthetic import SimParams
+
+    cfg = load_yaml(CONFIG_PATH)
+    cam = cfg.camera
+    return render_sequence(seq_dir, n_frames, cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
+                           cam.height, sp=SimParams(**PATH_C_SIM), n_landmarks=SMOKE_LANDMARKS,
+                           seed=SMOKE_SEED, mounts=Mounts.from_config(cfg),
+                           wall_radius=PATH_C_WALL_M)
+
+
+class InitProbe:
+    """Counts the estimator's initializers while a drive runs and times the
+    visual initializer's ``sfm_construct`` and each keyframe's map insert
+    (synchronized, so the times hold their device work): wraps the functions
+    of ``ground_fusion_tpu_torch.pipeline`` and ``.system`` and puts them
+    back on ``close``."""
+
+    def __init__(self, torch):
+        from ground_fusion_tpu_torch import pipeline, system
+
+        self.torch, self.pipeline = torch, pipeline
+        self.calls = {"stationary": 0, "wheel": 0, "visual": 0, "visual_ok": 0}
+        self.sfm_ms, self.map_ms = [], []
+        est, gfs = pipeline.Estimator, system.GroundFusionSystem
+        self._saved = [(pipeline, "stationary_bias_init", pipeline.stationary_bias_init),
+                       (pipeline, "sfm_construct", pipeline.sfm_construct),
+                       (est, "_wheel_excitation_init", est._wheel_excitation_init),
+                       (est, "_visual_initialize", est._visual_initialize),
+                       (gfs, "_map_keyframe", gfs._map_keyframe)]
+        probe = self
+
+        def stationary(*a, **k):
+            probe.calls["stationary"] += 1
+            return self._saved[0][2](*a, **k)
+
+        def sfm(*a, **k):
+            dev = a[0].obs.device
+            t0 = time.perf_counter()
+            out = self._saved[1][2](*a, **k)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            probe.sfm_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def wheel(est_self, *a, **k):
+            probe.calls["wheel"] += 1
+            return self._saved[2][2](est_self, *a, **k)
+
+        def visual(est_self, *a, **k):
+            probe.calls["visual"] += 1
+            ok = self._saved[3][2](est_self, *a, **k)
+            probe.calls["visual_ok"] += int(bool(ok))
+            return ok
+
+        def map_keyframe(sys_self, *a, **k):
+            t0 = time.perf_counter()
+            out = self._saved[4][2](sys_self, *a, **k)
+            if sys_self.device.type == "cuda":
+                torch.cuda.synchronize(sys_self.device)
+            probe.map_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        pipeline.stationary_bias_init = stationary
+        pipeline.sfm_construct = sfm
+        est._wheel_excitation_init = wheel
+        est._visual_initialize = visual
+        gfs._map_keyframe = map_keyframe
+
+    def close(self):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+
+def run_path_c(torch, work_dir, device=None, n_frames: int = PATH_C_FRAMES):
+    """Render the path-C drive and run it through ``__main__.run``; returns
+    (system, sequence directory, output directory, probe, wall seconds).
+    ``device=None`` is the GPU; the CPU rehearses it (slowly)."""
+    from ground_fusion_tpu_torch.__main__ import run
+
+    seq = os.path.join(work_dir, "path_c_seq")
+    out = os.path.join(work_dir, "path_c_out")
+    render_path_c_sequence(seq, n_frames)
+    cfg_path = path_c_config(work_dir)
+    probe = InitProbe(torch)
+    try:
+        t0 = time.perf_counter()
+        system = run(cfg_path, seq, out, device=device)
+        if system.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        probe.close()
+    return system, seq, out, probe, wall
+
+
+def phase_path_c(torch, work_dir, main_times):
+    import numpy as np
+
+    from ground_fusion_tpu_torch.ops.cuda import hamming, klt
+
+    _zero_counters(klt, hamming)
+    system, seq, out, probe, wall = run_path_c(torch, work_dir)
+    counts = _read_counters(klt, hamming)
+    est = system.estimator
+    init_frame = int(round(est.trajectory[0][0] * PATH_C_SIM["frame_rate"])) if est.trajectory else -1
+    print(f"path C: initializers called {probe.calls}; first pose at frame {init_frame}; "
+          f"sfm_construct {', '.join(f'{ms:.1f}' for ms in probe.sfm_ms)} ms", flush=True)
+    check(probe.calls["visual_ok"] >= 1 and probe.calls["stationary"] == 0
+          and probe.calls["wheel"] == 0,
+          f"path C: the estimator was not started by the visual initializer ({probe.calls})")
+    n_poses, ate, path = trajectory_ate(os.path.join(out, "vio.txt"), os.path.join(seq, "gt.csv"))
+    print(f"path C: {n_poses} poses over {path:.4f} m, ATE {ate:.5f} m (bounds {ATE_BOUND_M} m and "
+          f"{ATE_BOUND_OF_PATH:.0%} of the path), reboots {est.reboots}", flush=True)
+    check(n_poses >= PATH_C_MIN_POSES, f"path C: only {n_poses} poses in vio.txt")
+    check(ate < ATE_BOUND_M, f"path C: ATE {ate:.4f} m is not below {ATE_BOUND_M} m")
+    check(ate < ATE_BOUND_OF_PATH * path,
+          f"path C: ATE {ate:.4f} m is not below {ATE_BOUND_OF_PATH:.0%} of {path:.3f} m")
+    check(est.reboots == 0, "path C: the estimator rebooted")
+    check(est.core.state.poses.is_cuda and est.core.state.poses.dtype == torch.float32,
+          "path C: the state is not float32 on the GPU")
+
+    vm, tsdf = system.voxel_map, system.tsdf
+    map_tensors = [vm.counts, vm.color_sum, vm.pos_sum, tsdf.tsdf, tsdf.weight, tsdf.color]
+    map_tensors += [t for cloud in system._kf_clouds.values() for t in cloud]
+    map_tensors += [t for rgbd in system._kf_rgbd.values() for t in rgbd]
+    check(all(t.is_cuda for t in map_tensors), "path C: a map or TSDF tensor is not on the GPU")
+    sizes = {name: os.path.getsize(os.path.join(out, name)) for name in ("map.ply", "mesh.ply")}
+    n_vox = len(vm.export(system.cfg.map.density_gate)[0])
+    n_kf = sum(est.keyframe_flags)
+    print(f"path C: map.ply {sizes['map.ply']} bytes ({n_vox} voxels past the density gate), "
+          f"mesh.ply {sizes['mesh.ply']} bytes; {len(system._kf_clouds)} keyframe clouds registered "
+          f"of {n_kf} solved keyframes, {len(system.pose_graph.kfs)} keyframes in the pose graph", flush=True)
+    check(n_vox > 0 and all(s > 300 for s in sizes.values()), f"path C: empty map or mesh ({sizes})")
+
+    tracked_frames = system.stats.counts["track"] - 1
+    check(tracked_frames == PATH_C_FRAMES - 1, f"path C: {tracked_frames} tracked frames")
+    check(counts["lk_track"] == tracked_frames,
+          f"path C: {counts['lk_track']} lk_track launches, expected {tracked_frames}")
+    check(counts["lk_level"] == 0 and counts["plain"] == 0,
+          f"path C: {counts['lk_level']} lk_level launches, plain versions ran {counts['plain']} times")
+    check(counts["hamming_match"] == system.pose_graph.match_calls,
+          f"path C: {counts['hamming_match']} hamming_match launches for "
+          f"{system.pose_graph.match_calls} matches")
+
+    stats = system.stats
+    times = stage_times(stats)
+    print(f"path C: track median {times['track'][0]:.2f} ms/frame (mean {times['track'][1]:.2f}; phase 4: "
+          f"{main_times['track'][0]:.2f}), solve median {times['solve'][0]:.2f} ms/frame (mean "
+          f"{times['solve'][1]:.2f}; phase 4: {main_times['solve'][0]:.2f}) over "
+          f"{stats.counts['solve']} frames, map median {float(np.median(probe.map_ms)):.2f} "
+          f"ms/keyframe (mean {float(np.mean(probe.map_ms)):.2f}; synchronized) over "
+          f"{len(probe.map_ms)} keyframes", flush=True)
+    print(f"path C: {PATH_C_FRAMES / wall:.3f} frames/s ({wall:.1f} s wall), launches {counts}", flush=True)
+    return counts
+
+
+# --------------------------------------------------------------------------- 9
+
+
+# The rebuild scenario of tests/test_mapping.py (test_map_reanchors_after_loop)
+# at full width: four keyframes of a wavy 480x640 depth surface mapped at
+# poses that drift by (0.3, -0.25, 0.1) m a keyframe, then re-anchored at the
+# true poses; the default voxel capacity (2^20) and the default 128^3 TSDF.
+MAP_KEYFRAMES = 4
+MAP_SUM_REL_TOL = 1e-4       # float sums scattered in another order on the card
+MAP_TSDF_TOL = 1e-5
+MAP_REPS = 20
+
+
+def map_config(config_cls):
+    import dataclasses
+
+    cfg = config_cls()
+    return dataclasses.replace(
+        cfg,
+        map=dataclasses.replace(cfg.map, enabled=True, voxel_size=0.05, depth_stride=16, mesh=True),
+        loop=dataclasses.replace(cfg.loop, enabled=True))
+
+
+def _wavy_depth(np, h=480, w=640):
+    u, v = np.meshgrid(np.arange(w), np.arange(h))
+    return (0.9 + 0.25 * np.sin(u / 37.0) * np.cos(v / 23.0) + 0.4 * u / w).astype(np.float32)
+
+
+def _empty_keyframe(np, idx, pose):
+    from ground_fusion_tpu_torch.global_layers.pose_graph import Keyframe
+
+    z8, z = np.zeros((4, 8), np.uint32), np.zeros((4, 2))
+    return Keyframe(index=idx, t=float(idx), pose=np.asarray(pose, float), kp=z, kp_norm=z,
+                    desc=z8, kp_ok=np.zeros(4, bool), win_pts3d=np.zeros((4, 3)), win_norm=z,
+                    win_desc=z8, win_ok=np.zeros(4, bool), vio_pose=np.asarray(pose, float))
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_rebuild(torch, device, out_dir):
+    """The rebuild scenario on ``device``: (system, map before the rebuild as
+    (counts, centers), ground-truth cloud, rebuild ms)."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.config import Config
+    from ground_fusion_tpu_torch.geometry.se3 import pose_apply
+    from ground_fusion_tpu_torch.global_layers.dense_map import sample_rgbd
+    from ground_fusion_tpu_torch.system import GroundFusionSystem
+
+    system = GroundFusionSystem(map_config(Config), out_dir, device=device)
+    depth, img = _wavy_depth(np), np.full((480, 640), 128.0, np.float32)
+    gt = [np.array([0.25 * k, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]) for k in range(MAP_KEYFRAMES)]
+    drift = [g + np.r_[np.array([0.3, -0.25, 0.1]) * k, np.zeros(4)] for k, g in enumerate(gt)]
+    for k in range(MAP_KEYFRAMES):
+        system.pose_graph.kfs.append(_empty_keyframe(np, k, drift[k]))
+        system._map_keyframe(drift[k], img, depth, register=k)
+    # a copy: on the CPU, .numpy() would share the storage the rebuild clears
+    before = (system.voxel_map.counts.cpu().numpy().copy(), system.voxel_map.export(1)[0])
+    for k in range(MAP_KEYFRAMES):
+        system.pose_graph.kfs[k] = system.pose_graph.kfs[k]._replace(pose=gt[k])
+    t0 = time.perf_counter()
+    system._rebuild_map()
+    _sync(torch, system.device)
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    # the truth: the same sampling and lift at the true poses
+    dt = torch.as_tensor(depth, device=system.device)
+    ct = torch.as_tensor(np.full(depth.shape + (3,), 128.0, np.float32), device=system.device)
+    gx, gy, d, _, ok = sample_rgbd(dt, ct, stride=16, boundary=system.cfg.map.depth_boundary)
+    rays = system.cam.lift_projective(torch.stack([gx, gy], -1).to(torch.float32))
+    pts_c = rays / torch.clamp(torch.abs(rays[:, 2:3]), min=1e-9) * d[:, None]
+    gt_cloud = np.concatenate([pose_apply(system._cam_pose(g), pts_c)[ok].cpu().numpy() for g in gt])
+    return system, before, gt_cloud, rebuild_ms
+
+
+def _nn_err(np, a, b):
+    """Mean distance from each point of ``a`` to its nearest in ``b``."""
+    best = np.full(len(a), np.inf)
+    for i in range(0, len(b), 2048):
+        d = np.linalg.norm(a[:, None, :] - b[None, i:i + 2048, :], axis=-1)
+        best = np.minimum(best, d.min(axis=1))
+    return float(best.mean())
+
+
+def phase_map(torch, work_dir):
+    import numpy as np
+
+    torch.cuda.reset_peak_memory_stats()
+    gpu, before_g, gt_cloud, rebuild_ms = run_rebuild(torch, "cuda", os.path.join(work_dir, "map_gpu"))
+    cpu, before_c, _, _ = run_rebuild(torch, "cpu", os.path.join(work_dir, "map_cpu"))
+    vg, vc = gpu.voxel_map, cpu.voxel_map
+    counts_g, counts_c = vg.counts.cpu().numpy(), vc.counts.cpu().numpy()
+    check(np.array_equal(before_g[0], before_c[0]), "map: counts before the rebuild differ from the CPU's")
+    check(np.array_equal(counts_g, counts_c), "map: counts after the rebuild differ from the CPU's")
+    slots_g, slots_c = np.nonzero(counts_g >= 1)[0], np.nonzero(counts_c >= 1)[0]
+    check(np.array_equal(slots_g, slots_c), "map: the exported voxel set differs from the CPU's")
+    rel = {}
+    for name in ("color_sum", "pos_sum"):
+        a, b = getattr(vg, name).cpu().numpy(), getattr(vc, name).cpu().numpy()
+        rel[name] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    d_tsdf = max(float((getattr(gpu.tsdf, n).cpu() - getattr(cpu.tsdf, n)).abs().max())
+                 for n in ("tsdf", "weight"))
+    err0, err1 = _nn_err(np, before_g[1], gt_cloud), _nn_err(np, vg.export(1)[0], gt_cloud)
+    print(f"map: {len(slots_g)} voxels in {MAP_KEYFRAMES} keyframes, counts and voxel set equal to the "
+          f"CPU's; sums within {rel['color_sum']:.2e} / {rel['pos_sum']:.2e} relative (bound "
+          f"{MAP_SUM_REL_TOL}); TSDF and weight within {d_tsdf:.2e} (bound {MAP_TSDF_TOL}); error to "
+          f"the truth {err0:.4f} m drifted, {err1:.4f} m after the rebuild", flush=True)
+    check(max(rel.values()) <= MAP_SUM_REL_TOL, f"map: sums {rel} from the CPU's")
+    check(d_tsdf <= MAP_TSDF_TOL, f"map: TSDF {d_tsdf} from the CPU's")
+    check(err0 > 0.08 and err1 < 0.05 and err1 < 0.3 * err0,
+          f"map: the rebuild did not re-anchor ({err0:.3f} -> {err1:.3f} m)")
+
+    # times on the card: one keyframe's insert and integrate, the rebuild of
+    # four keyframes (host clock, synchronized), the mesh extraction (host)
+    pts_cam, rgb, ok = gpu._kf_clouds[0]
+    cam_pose = gpu._cam_pose(gpu.pose_graph.kfs[0].pose)
+    from ground_fusion_tpu_torch.geometry.se3 import pose_apply
+
+    pts_w = pose_apply(cam_pose, pts_cam)
+    depth_t, color_t = (x.to(torch.float32) for x in gpu._kf_rgbd[0])
+    p = gpu._cam_host
+    insert_ms = _time_ms(torch, lambda: vg.insert(pts_w, rgb, ok), MAP_REPS)
+    integrate_ms = _time_ms(torch, lambda: gpu.tsdf.integrate(
+        depth_t, color_t, cam_pose, float(p.fx), float(p.fy), float(p.cx), float(p.cy)), MAP_REPS)
+    rebuilds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gpu._rebuild_map()
+        _sync(torch, gpu.device)
+        rebuilds.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    verts, _, tris = gpu.tsdf.extract_mesh()
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    # bounds: each input read once, each output written once. insert reads
+    # the points, colours and mask and updates one slot per point (count,
+    # colour and position sums); integrate reads the voxel centres, the
+    # volume and the RGB-D image and writes the volume, ~40 operations a voxel
+    n_pts, n_vox = len(ok), gpu.tsdf.n ** 3
+    insert_bound, insert_by = _bound_ms(n_pts * (12 + 12 + 1 + 2 * 28), n_pts * 8, F32_FLOP_PER_S)
+    integrate_bound, integrate_by = _bound_ms(
+        n_vox * (12 + 2 * 20) + depth_t.numel() * 16, n_vox * 40, F32_FLOP_PER_S)
+    print(f"map: bounds insert {insert_bound:.6f} ms ({insert_by}), integrate "
+          f"{integrate_bound:.6f} ms ({integrate_by})")
+    print(f"map: insert {insert_ms:.4f} ms ({len(ok)} points), integrate {integrate_ms:.4f} ms "
+          f"({gpu.tsdf.n}^3 voxels), _rebuild_map {rebuild_ms:.2f} ms first, "
+          f"{', '.join(f'{r:.2f}' for r in rebuilds)} ms again ({MAP_KEYFRAMES} keyframes), "
+          f"extract_mesh {extract_ms:.1f} ms ({len(verts)} vertices, {len(tris)} triangles); "
+          f"peak device memory {peak:.1f} MiB", flush=True)
+    check(len(verts) > 0 and len(tris) > 0, "map: the TSDF gave no mesh")
+
+
 # ------------------------------------------------------------------------ main
 
 
@@ -1546,8 +1916,11 @@ def main() -> int:
         revisit_counts = phase_revisit(torch, work_dir)
         phase_solvers(torch, work_dir)
         gnss_counts = phase_gnss(torch, work_dir, main_times)
+        path_c_counts = phase_path_c(torch, work_dir, main_times)
+        phase_map(torch, work_dir)
         for name, entry in entries.items():
-            entry["launches"] = main_counts[name] + revisit_counts[name] + gnss_counts[name]
+            entry["launches"] = (main_counts[name] + revisit_counts[name] + gnss_counts[name]
+                                 + path_c_counts[name])
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(card)

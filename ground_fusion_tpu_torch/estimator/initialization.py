@@ -1,15 +1,15 @@
-"""Initialization: gyro-bias solve, wheel-aided linear alignment, gravity
-refinement, stationary/dynamic bootstrap.
+"""Initialization: gyro-bias solve, the four linear alignments (wheel,
+mono, depth, wheel+depth), gravity refinement, stationary/dynamic bootstrap,
+hand-eye extrinsic rotation calibration.
 
 Re-design of ``initial/initial_aligment.cpp`` (solveGyroscopeBias
-:14-47, TangentBasis :49-63, LinearAlignmentWithWheel :353-424,
-RefineGravityWithWheel-family :426-497) and the stationary / wheel-activation
+:14-47, TangentBasis :49-63, LinearAlignment :199-280,
+LinearAlignmentWithWheel :353-424, RefineGravityWithWheel-family :426-497,
+LinearAlignmentWithWD :499-572, LinearAlignmentWithDepth :574-638),
+``initial/initial_ex_rotation.cpp`` and the stationary / wheel-activation
 paths of ``Estimator::initialStructure`` (``estimator.cpp:1604-1682``): every
 per-frame loop becomes a batched least-squares plus one dense solve — these
 run once at bootstrap, so clarity > tuning.
-
-The visual-SfM alignments (mono / depth / wheel+depth) and the hand-eye
-extrinsic calibration of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,15 +20,18 @@ from torch import Tensor
 from ..geometry.so3 import (
     _cross,
     g2r,
+    left_quat_prod_mat,
     mat_to_quat,
     mat_to_ypr,
     quat_conj,
+    quat_identity,
     quat_mul,
     quat_to_mat,
+    right_quat_prod_mat,
     ypr_to_mat,
 )
 from ..preintegration.imu import ImuPreint
-from ..preintegration.wheel import WheelPreint
+from ..preintegration.wheel import WheelPreint, identity_wheel_preint
 from .window import WindowState
 
 
@@ -180,6 +183,39 @@ def linear_alignment_wheel(Rs, Ts, imu_pre: ImuPreint, wheel_pre: WheelPreint,
                             refine_iters=refine_iters)
 
 
+def _no_wheel_blocks(Rs, Ts, imu_pre, tic):
+    """The alignment blocks of a rig without a wheel: identity wheel
+    preintegrations, zero wheel mount (their rows are dropped by the solve)."""
+    n = Rs.shape[0]
+    wp = WheelPreint(*[torch.stack([a] * n)
+                       for a in identity_wheel_preint(Rs.dtype, Rs.device)])
+    zero = torch.zeros(3, dtype=Rs.dtype, device=Rs.device)
+    eye = torch.eye(3, dtype=Rs.dtype, device=Rs.device)
+    return _alignment_blocks(Rs, Ts, imu_pre, wp, tic, zero, eye)
+
+
+def linear_alignment_mono(Rs, Ts, imu_pre: ImuPreint, tic, g_norm: float):
+    """Monocular-visual alignment with unknown scale (LinearAlignment,
+    initial_aligment.cpp:199-280)."""
+    A9, b9 = _no_wheel_blocks(Rs, Ts, imu_pre, tic)
+    return _alignment_solve(A9, b9, Rs.shape[0], g_norm, use_wheel=False, use_scale=True)
+
+
+def linear_alignment_depth(Rs, Ts, imu_pre: ImuPreint, tic, g_norm: float):
+    """RGBD alignment — metric scale known (LinearAlignmentWithDepth,
+    initial_aligment.cpp:574-638)."""
+    A9, b9 = _no_wheel_blocks(Rs, Ts, imu_pre, tic)
+    return _alignment_solve(A9, b9, Rs.shape[0], g_norm, use_wheel=False, use_scale=False)
+
+
+def linear_alignment_wd(Rs, Ts, imu_pre: ImuPreint, wheel_pre: WheelPreint,
+                        tic, tio, rio_mat, g_norm: float):
+    """Wheel + depth alignment — wheel rows, metric scale known
+    (LinearAlignmentWithWD, initial_aligment.cpp:499-572)."""
+    A9, b9 = _alignment_blocks(Rs, Ts, imu_pre, wheel_pre, tic, tio, rio_mat)
+    return _alignment_solve(A9, b9, Rs.shape[0], g_norm, use_wheel=True, use_scale=False)
+
+
 def stationary_bias_init(acc_mean: Tensor, gyr_mean: Tensor, g_norm: float):
     """Stationary bootstrap (``estimator.cpp:1604-1643``): accel bias from the
     gravity-aligned mean specific force, gyro bias = mean gyro rate."""
@@ -208,3 +244,43 @@ def align_window_to_gravity(state: WindowState, g_est: Tensor, vels_body: Tensor
     poses = torch.cat([new_p, mat_to_quat(new_R)], dim=-1)
     sbs = torch.cat([v_world, state.sbs[:, 3:]], dim=-1)
     return state._replace(poses=poses, sbs=sbs)
+
+
+def calibrate_extrinsic_rotation(q_cam: Tensor, q_imu: Tensor, valid: Tensor, iters: int = 5):
+    """Online camera–IMU rotation hand-eye calibration
+    (``InitialEXRotation::CalibrationExRotation``,
+    ``initial/initial_ex_rotation.cpp:22-79``, the ESTIMATE_EXTRINSIC=2
+    bootstrap): each frame pair contributes ``Qleft(q_cam) − Qright(q_imu)``
+    (the constraint ``q_cam ⊗ x = x ⊗ q_imu``), Huber-downweighted by the
+    angular disagreement (deg, knee at 5°) between the camera rotation and
+    the IMU rotation conjugated into the camera frame by the current
+    estimate. The whole batch is linearized at once and the reweight→solve
+    cycle runs ``iters`` fixed Picard iterations; the 4x4 normal matrix is
+    eigendecomposed in place of an SVD of the tall stack (same null space).
+
+    q_cam, q_imu: [N,4] wxyz relative rotations of the same frame pairs
+    (camera from ``sfm.relative_pose_ransac``, IMU preintegrated); valid [N].
+    Returns (ric [3,3], ok) — ok is the reference's observability gate
+    ``ric_cov(1) > 0.25`` (second-smallest singular value of the weighted
+    stack) with at least 10 pairs."""
+    dtype = q_cam.dtype
+    w_valid = valid.to(dtype)
+    q_ric = quat_identity(dtype, q_cam.device)
+    sv2 = None
+    for _ in range(iters):
+        # IMU rotation seen from the camera frame under the current estimate
+        q_cg = quat_mul(quat_mul(quat_conj(q_ric)[None, :], q_imu), q_ric[None, :])
+        dot = torch.clamp(torch.abs(torch.sum(q_cam * q_cg, dim=-1)), 0.0, 1.0)
+        ang_deg = torch.rad2deg(2.0 * torch.arccos(dot))
+        huber = torch.where(ang_deg > 5.0, 5.0 / torch.clamp(ang_deg, min=1e-9),
+                            torch.ones_like(ang_deg))
+        w = (huber * w_valid)[:, None, None]
+        A = w * (left_quat_prod_mat(q_cam) - right_quat_prod_mat(q_imu))     # [N,4,4]
+        eigval, eigvec = torch.linalg.eigh(torch.einsum("nij,nik->jk", A, A))  # ascending
+        x = eigvec[:, 0]
+        x = x * torch.sign(torch.where(torch.abs(x[0]) > 1e-12, x[0], torch.ones_like(x[0])))
+        # q_cam ⊗ x = x ⊗ q_imu  →  ric = R(x)⁻¹ (reference: estimated_R.inverse())
+        q_ric = quat_conj(x / torch.linalg.norm(x))
+        sv2 = torch.sqrt(torch.clamp(eigval[1], min=0.0))   # second-smallest singular value
+    ok = (sv2 > 0.25) & (valid.sum() >= 10)
+    return quat_to_mat(q_ric), ok

@@ -109,7 +109,6 @@ def base_free_mask(cfg: Config, layout: StateLayout) -> np.ndarray:
 def check_supported(cfg: Config) -> None:
     """Raise for configuration switches whose modules are not ported yet."""
     pending = [
-        (cfg.map.enabled, "map", "dense map and meshing"),
         (cfg.use_line, "use_line", "lines"),
         (cfg.use_yolo, "use_yolo", "detector, calibration, other camera models"),
         (bool(cfg.burst_chunk), "burst_chunk", "execution modes (burst, live, fleet)"),

@@ -41,14 +41,20 @@ from .estimator.buffers import (
 from .estimator.gates import failure_detection
 from .estimator.initialization import (
     align_window_to_gravity,
+    calibrate_extrinsic_rotation,
+    linear_alignment_depth,
+    linear_alignment_mono,
+    linear_alignment_wd,
     linear_alignment_wheel,
     solve_gyroscope_bias,
     stationary_bias_init,
 )
+from .estimator.sfm import N_HYPOTHESES, relative_pose_ransac, sfm_construct
 from .estimator.step import EstimatorCore, StepFlags, make_window_step
 from .estimator.window import empty_state, empty_tracks, slide_old_state, slide_old_tracks
 from .geometry.se3 import pose as make_pose, pose_compose, pose_inverse
 from .geometry.so3 import mat_to_quat, quat_to_mat
+from .global_layers.pnp import gumbel_noise
 from .gnss.factors import SLOT_SCALARS, SLOT_VECTORS, empty_gnss_obs
 from .gnss.ingest import GnssIngest
 from .preintegration.imu import noise_cov
@@ -77,11 +83,6 @@ class Estimator:
     def __init__(self, cfg: Config, dtype=torch.float32, device=None):
         """``device=None`` means the GPU and raises when there is none; pass
         ``device="cpu"`` to run on the CPU on purpose."""
-        if cfg.solver.calibrate_extrinsic:
-            raise NotImplementedError(
-                "solver.calibrate_extrinsic needs the visual-SfM relative-pose "
-                "RANSAC, which is not ported to ground_fusion_tpu_torch yet "
-                "(ROADMAP.md, queue 1: visual-SfM init)")
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -461,7 +462,8 @@ class Estimator:
         """3-mode dispatch (``Estimator::initialStructure``,
         estimator.cpp:1557-1847): stationary → bias-only; excited + wheel →
         gyro-bias solve + wheel linear alignment + gravity alignment; else →
-        visual SfM + PnP + VisualIMUAlignment (path C, not ported yet)."""
+        visual SfM + PnP + VisualIMUAlignment (path C,
+        estimator.cpp:1712-1847, dispatch initial_aligment.cpp:640-653)."""
         cfg = self.cfg
         stats = self._imu_stats()
         if stats is None:
@@ -513,18 +515,117 @@ class Estimator:
         if not bool(ok):
             return False
         st = align_window_to_gravity(st, g_est, vels_body, cfg.imu.g_norm)
+
+        if cfg.solver.calibrate_extrinsic:
+            # ESTIMATE_EXTRINSIC=2: bootstrap ric by hand-eye calibration from
+            # adjacent-pair essential rotations vs IMU delta rotations
+            # (CalibrationExRotation call site estimator.cpp:905-925)
+            ric, cal_ok = self._hand_eye_bootstrap(imu_pre)
+            if bool(cal_ok):
+                st = st._replace(ex_cam=torch.cat([st.ex_cam[0:3], mat_to_quat(ric)]))
         self.core = self.core._replace(state=st)
         return True
 
+    def draw_ransac_noise(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        """The Gumbel draws that pick the relative-pose RANSAC's 8-point sets,
+        [32, n] in the tracks' dtype, from ``generator`` (tests replace this
+        method with the JAX package's draws)."""
+        return gumbel_noise(N_HYPOTHESES, n, generator, self.dtype, self.device)
+
+    def _generator(self, seed: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return gen
+
     def _visual_initialize(self, imu_pre) -> bool:
         """Visual-SfM initialization (path C — the reference's general mode,
-        ``estimator.cpp:1712-1847``): global SfM over the window, gyro bias
-        from SfM rotations, VisualIMUAlignment, gravity alignment."""
-        raise NotImplementedError(
-            "visual-SfM initialization (estimator/sfm.py, global_layers/pnp.py, "
-            "Estimator._visual_initialize) is not ported to ground_fusion_tpu_torch "
-            "yet: neither the stationary nor the wheel-excitation initializer "
-            "accepted this window (ROADMAP.md, queue 1: visual-SfM init)")
+        ``estimator.cpp:1712-1847``): global SfM over the window
+        (relativePose → GlobalSFM.construct → PnP every frame), gyro bias
+        from SfM rotations, then the VisualIMUAlignment linear system picked
+        by sensor availability (initial_aligment.cpp:640-653: WD | Wheel |
+        Depth | mono) and gravity alignment (visualInitialAlign,
+        estimator.cpp:1849-1926). The RANSAC draw comes from a generator
+        seeded with the number of window frames.
+
+        Divergence (kept from the JAX package): the fork re-installs the
+        stationary accel-bias formula after a successful visual init
+        (estimator.cpp:1826-1837) — skipped, since ``aver_g`` mixes true
+        acceleration into the bias when the platform is moving (upstream
+        VINS-Mono does not do this either)."""
+        cfg = self.cfg
+        st = self.core.state
+        tr = self.core.tracks
+        use_depth = bool(cfg.use_depth) and bool((tr.obs[..., 4] > 0.1).any())
+        noise = self.draw_ransac_noise(tr.obs.shape[0], self._generator(len(self.ts)))
+        poses_cam, ok = sfm_construct(tr, noise, use_depth=use_depth)
+        if not ok:
+            return False
+        poses_cam = poses_cam.to(self.dtype)
+        ric = quat_to_mat(st.ex_cam[3:7])
+        tic = st.ex_cam[0:3]
+        # body rotation from SfM camera rotation: R_w_b = R_w_c · RICᵀ
+        # (estimator.cpp:1758 frame.R = Q[i] · RIC[0].transpose())
+        R_body = quat_to_mat(poses_cam[:, 3:7]) @ ric.T
+        q_body = mat_to_quat(R_body)
+        Ts = poses_cam[:, 0:3]                 # SfM camera centers
+
+        # gyro bias from the SfM rotations, then re-preintegrate
+        n18, n12 = self._noise()
+        valid = torch.arange(self.f, device=self.device) >= 1
+        dbg = solve_gyroscope_bias(q_body, imu_pre, valid)
+        st = st._replace(sbs=torch.cat([st.sbs[:, 0:6], st.sbs[:, 6:9] + dbg], dim=1))
+        imu_pre = preintegrate_imu_window(self.core.imu_buf, st.sbs, n18)
+
+        if cfg.wheel.enabled:
+            wheel_pre = preintegrate_wheel_window(
+                self.core.wheel_buf, st.s_wheel, st.td_wheel, n12)
+            tio = st.ex_wheel[0:3]
+            rio = quat_to_mat(st.ex_wheel[3:7])
+            align = linear_alignment_wd if use_depth else linear_alignment_wheel
+            ok, g_est, vels_body, s = align(R_body, Ts, imu_pre, wheel_pre, tic, tio, rio,
+                                            cfg.imu.g_norm)
+        else:
+            align = linear_alignment_depth if use_depth else linear_alignment_mono
+            ok, g_est, vels_body, s = align(R_body, Ts, imu_pre, tic, cfg.imu.g_norm)
+        if not bool(ok):
+            return False
+
+        # camera centers → body origins at the recovered scale, re-zeroed at
+        # frame 0 (visualInitialAlign: Ps[i] = s·Pi − Ri·TIC − (s·P0 − R0·TIC))
+        Ps = s * Ts - R_body @ tic
+        Ps = Ps - Ps[0]
+        st = st._replace(poses=torch.cat([Ps, q_body], dim=-1))
+        st = align_window_to_gravity(st, g_est, vels_body, cfg.imu.g_norm)
+        self.core = self.core._replace(state=st)
+        return True
+
+    def _hand_eye_bootstrap(self, imu_pre):
+        """Relative camera rotations (essential-matrix RANSAC on each adjacent
+        frame pair of the window's tracks, draws from a generator seeded 0)
+        + IMU preintegrated delta rotations → ``calibrate_extrinsic_rotation``
+        (initial_ex_rotation.cpp:22-79). Returns (ric, ok), or (None, False)
+        with fewer than 3 usable pairs."""
+        tr = self.core.tracks
+        ml = tr.obs.shape[0]
+        ov = tr.obs_valid & tr.active[:, None]
+        n_both = (ov[:, :-1] & ov[:, 1:]).sum(dim=0).cpu().numpy()     # one fetch
+        gen = self._generator(0)
+        q_cam, q_imu = [], []
+        for k in range(self.f - 1):
+            if n_both[k] < 12:
+                continue
+            both = ov[:, k] & ov[:, k + 1]
+            pose_rel, _, ok = relative_pose_ransac(tr.obs[:, k, 0:2], tr.obs[:, k + 1, 0:2], both,
+                                                   self.draw_ransac_noise(ml, gen))
+            if not bool(ok):
+                continue
+            q_cam.append(pose_rel[3:7])          # q_ci_cj, matches delta_q q_bi_bj
+            q_imu.append(imu_pre.delta_q[k + 1])
+        if len(q_cam) < 3:
+            return None, False
+        return calibrate_extrinsic_rotation(
+            torch.stack(q_cam), torch.stack(q_imu),
+            torch.ones(len(q_cam), dtype=torch.bool, device=self.device))
 
     # ------------------------------------------------------------- solve step
 

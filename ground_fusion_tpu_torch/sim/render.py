@@ -3,8 +3,9 @@ directory layout of :mod:`..io.dataset` — gives the full system (KLT front
 end included) an end-to-end driveable input without any external dataset.
 
 Gaussian blobs at the projected landmark pixels over a dark noisy background,
-a depth image that carries each blob's range, and the IMU / wheel / ground
-truth files, all from a seed. The intrinsics come from the caller's config,
+a depth image that carries each blob's range (and, if asked for, the range of
+an untextured cylindrical wall around the path behind every other pixel),
+and the IMU / wheel / ground truth files, all from a seed. The intrinsics come from the caller's config,
 and so may the sensor mounts (:class:`Mounts`): the simulator's camera always
 looks along the direction of travel, and the IMU (the body frame the
 estimator solves for) and the wheel odometer are placed relative to that
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from ..geometry.se3 import pose_compose
 from ..utils import np_quat
 from .synthetic import (
     F64,
@@ -102,11 +104,13 @@ def wheel_at_mount(ts, sp: SimParams, r_x, t_x, t_io, q_io):
     return (vel_b + np.cross(gyr_b, np.asarray(t_io, np.float64))) @ r_io, gyr_b @ r_io
 
 
-def render_frame(uv_px, z, vis, rng, width: int, height: int):
+def render_frame(uv_px, z, vis, rng, width: int, height: int, background=None):
     """Gaussian blobs at projected landmark pixels over a dark background.
-    Returns (image [H,W] float32 in 0..255, depth [H,W] float32, 0 = none)."""
+    Returns (image [H,W] float32 in 0..255, depth [H,W] float32, 0 = none);
+    ``background`` [H,W] is the depth behind the blobs (default none)."""
     img = rng.normal(8.0, 1.0, (height, width)).astype(np.float32)
-    depth = np.zeros((height, width), np.float32)
+    depth = (np.zeros((height, width), np.float32) if background is None
+             else np.asarray(background, np.float32).copy())
     ys, xs = np.mgrid[0:7, 0:7] - 3
     blob = 200.0 * np.exp(-(xs**2 + ys**2) / 4.0)
     for (u, v), d, ok in zip(uv_px, z, vis):
@@ -119,13 +123,32 @@ def render_frame(uv_px, z, vis, rng, width: int, height: int):
     return np.clip(img, 0, 255), depth
 
 
+def wall_depth(cam_pose, fx: float, fy: float, cx: float, cy: float, width: int, height: int,
+               radius: float) -> np.ndarray:
+    """Depth image [H,W] (z in the camera) of the vertical cylinder of
+    ``radius`` about the world's z axis, seen from inside by the camera at
+    ``cam_pose`` (world_T_cam [7]); 0 where a ray runs parallel to the axis."""
+    p = np.asarray(cam_pose, np.float64)
+    u, v = np.meshgrid(np.arange(width), np.arange(height))
+    rays = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u, float)], -1)
+    d = rays @ np_quat.quat_to_mat(p[3:7]).T                # world direction, z_cam = 1
+    a = d[..., 0] ** 2 + d[..., 1] ** 2
+    b = 2.0 * (p[0] * d[..., 0] + p[1] * d[..., 1])
+    c = p[0] ** 2 + p[1] ** 2 - radius ** 2                 # < 0 inside the wall
+    s = (-b + np.sqrt(np.maximum(b * b - 4.0 * a * c, 0.0))) / np.maximum(2.0 * a, 1e-12)
+    return np.where(a > 1e-12, s, 0.0).astype(np.float32)
+
+
 def render_sequence(out_dir: str, n_frames: int, fx: float, fy: float, cx: float,
                     cy: float, width: int, height: int, sp: SimParams | None = None,
                     n_landmarks: int = 600, seed: int = 0,
-                    mounts: Mounts | None = None) -> str:
+                    mounts: Mounts | None = None, wall_radius: float | None = None) -> str:
     """Write ``n_frames`` rendered frames plus ``imu.csv``, ``wheel.csv``,
     ``frames.csv`` and ``gt.csv`` (the IMU's pose) into ``out_dir``; returns
-    ``out_dir``. ``mounts=None`` keeps the simulator's own sensor frames."""
+    ``out_dir``. ``mounts=None`` keeps the simulator's own sensor frames.
+    ``wall_radius`` puts an untextured wall of that radius about the path's
+    centre into the depth images (dense depth for the dense map); by default
+    only the blobs have a depth."""
     sp = sp if sp is not None else SimParams(omega=0.25)
     mounts = mounts if mounts is not None else Mounts()
     os.makedirs(os.path.join(out_dir, "img"), exist_ok=True)
@@ -149,7 +172,11 @@ def render_sequence(out_dir: str, n_frames: int, fx: float, fy: float, cx: float
         pose = gt_pose7(t, sp)
         uv, z, vis = project_landmarks(pose, ex, pts_w)
         uv_px = uv.numpy() * [fx, fy] + [cx, cy]
-        img, depth = render_frame(uv_px, z.numpy(), vis.numpy(), rng, width, height)
+        background = None
+        if wall_radius is not None:
+            cam = pose_compose(pose, ex).numpy()
+            background = wall_depth(cam, fx, fy, cx, cy, width, height, wall_radius)
+        img, depth = render_frame(uv_px, z.numpy(), vis.numpy(), rng, width, height, background)
         np.save(os.path.join(out_dir, "img", f"{k:05d}.npy"), img)
         np.save(os.path.join(out_dir, "img", f"{k:05d}_d.npy"), depth)
         frame_rows.append(f"{t:.6f},img/{k:05d}.npy,img/{k:05d}_d.npy")

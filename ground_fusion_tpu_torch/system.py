@@ -1,13 +1,14 @@
-"""Full-system orchestration: tracker + estimator + loop closure.
+"""Full-system orchestration: tracker + estimator + loop closure + mapping.
 
 The one-object equivalent of the reference's ROS processes (``vins_node`` +
-``dense_map_node`` — SURVEY §1 L0/L5): images go through the KLT front-end,
-features into the sliding-window estimator, keyframes into the BoW/pose-graph
-loop closure, solved poses and NavSatFix fixes into the GPS/VIO global
+``dense_map_node`` + ``global_fusion_node`` — SURVEY §1 L0/L5): images go
+through the KLT front-end, features into the sliding-window estimator,
+keyframes into the BoW/pose-graph loop closure and the dense voxel map (with
+its TSDF mesh), solved poses and NavSatFix fixes into the GPS/VIO global
 fusion. Everything is in-process — module-to-module calls replace ROS
-pub/sub (SURVEY §2 parallelism table). The dense map, lines and the detector
-of the JAX package are not ported yet; a config that turns one of them on
-raises at construction.
+pub/sub (SURVEY §2 parallelism table). Lines and the detector of the JAX
+package are not ported yet; a config that turns one of them on raises at
+construction.
 
 Run from a dataset directory::
 
@@ -28,6 +29,9 @@ from .config import Config
 from .estimator.step import check_supported
 from .frontend.tracker import FeatureTracker
 from .geometry.se3 import pose_apply, pose_compose
+from .geometry.so3 import mat_to_quat
+from .global_layers.dense_map import VoxelColorMap, sample_rgbd, write_cloud_ply
+from .global_layers.meshing import TsdfVolume, radius_outlier_filter
 from .global_layers.pose_graph import Keyframe, PoseGraph
 from .pipeline import Estimator
 from .utils import np_quat
@@ -69,6 +73,23 @@ class GroundFusionSystem:
             self.pose_graph = PoseGraph(cfg, cam_focal=cfg.camera.fx, device=self.device)
             self._kf_index = 0
             self._opt_edges = 0
+            # per-keyframe CAMERA-frame clouds (and RGB-D copies for the
+            # TSDF) for post-loop re-anchoring, kept on the device (the
+            # reference keeps point_rgbd on each KeyFrame and rebuilds the
+            # octree from them in updatePath, pose_graph.cpp:875-930)
+            self._kf_clouds: dict[int, tuple] = {}
+            self._kf_rgbd: dict[int, tuple] = {}
+
+        self.voxel_map = None
+        self.tsdf = None
+        if cfg.map.enabled:
+            self.voxel_map = VoxelColorMap(voxel_size=cfg.map.voxel_size, device=self.device)
+            if cfg.map.mesh:
+                self.tsdf = TsdfVolume(
+                    origin=cfg.map.mesh_origin, size_m=cfg.map.mesh_size_m,
+                    resolution=cfg.map.mesh_resolution,
+                    depth_max=cfg.tracker.depth_max, device=self.device,
+                )
         self.global_fusion = None     # built by the first GPS fix
 
         self.stats = StageStats()
@@ -80,8 +101,9 @@ class GroundFusionSystem:
         # live topics (visualization.cpp:53-81). Topics: imu_propagate
         # (IMU-rate predicted odometry, pubLatestOdometry), odometry (per
         # solved frame, pubOdometry), keyframe (pubKeyframe), loop_closure (new
-        # verified loop edge), path_update (post-relaxation drift broadcast).
-        # Publishing is zero-cost with no subscribers.
+        # verified loop edge), path_update (post-relaxation drift broadcast),
+        # map_delta (newly inserted keyframe cloud). Publishing is zero-cost
+        # with no subscribers.
         self._subs: dict[str, list] = {}
 
     # ------------------------------------------------------------- telemetry
@@ -167,12 +189,43 @@ class GroundFusionSystem:
                           is_keyframe=is_kf)
             if is_kf:
                 self._publish("keyframe", t=t, pose=np.asarray(pose))
-            if self.pose_graph is not None and is_kf:
-                # loop-closure registration (the loop half of the JAX
-                # package's _loop_and_map; the dense-map half waits for the
-                # map's port, and cfg.map raises at construction)
-                self._add_loop_keyframe(t, img, pose)
+            self._loop_and_map(t, img, depth, pose, is_kf)
         return pose
+
+    def _loop_and_map(self, t, img, depth, pose, is_keyframe):
+        """Loop-closure registration + dense-map insertion for one solved
+        frame. With the pose graph active, clouds are inserted at the
+        DRIFT-CORRECTED keyframe pose and registered for re-anchoring after
+        each graph relaxation — the reference inserts at ``updatePose``'s
+        corrected pose and rebuilds the octree in ``updatePath``
+        (pose_graph.cpp:170-244, 875-930). Without a pose graph there is no
+        drift estimate and every frame maps at its VIO pose."""
+        corrected = None
+        if self.pose_graph is not None and is_keyframe:
+            corrected = self._add_loop_keyframe(t, img, pose)
+        if self.voxel_map is None or depth is None:
+            return
+        if self.pose_graph is not None:
+            # reference parity: only pose-graph keyframes carry dense clouds
+            if not is_keyframe:
+                return
+            if corrected is not None:
+                self._map_keyframe(corrected, img, depth, register=len(self.pose_graph.kfs) - 1)
+            else:
+                # keyframe payload too thin for the graph — still map it at
+                # the current drift-corrected pose (un-re-anchorable)
+                self._map_keyframe(self._drift_corrected(pose), img, depth)
+        else:
+            self._map_keyframe(pose, img, depth)
+
+    def _drift_corrected(self, pose) -> np.ndarray:
+        """``pose`` [7] under the pose graph's current drift (host, float64)."""
+        pg = self.pose_graph
+        p = np.asarray(pose, float).copy()
+        p[0:3] = pg.r_drift @ p[0:3] + pg.t_drift
+        q_d = mat_to_quat(torch.as_tensor(np.asarray(pg.r_drift, np.float64))).numpy()
+        p[3:7] = np_quat.quat_normalize(np_quat.quat_mul(q_d, p[3:7]))
+        return p
 
     def _seed_tracker_predictions(self):
         """Project solved landmarks through the IMU-rate propagated pose into
@@ -265,7 +318,7 @@ class GroundFusionSystem:
                            dim=1).cpu().numpy()
         packed = packed[packed[:, 0] > 0.5]
         if len(packed) < 8:
-            return
+            return None
         pts3d, norm2d = packed[:, 1:4], packed[:, 4:6]
         # normalized-plane ↔ pixel through the dispatched camera model
         # (keyframe.cpp uses the camodocal camera for both directions), on
@@ -293,11 +346,97 @@ class GroundFusionSystem:
                               n_keyframes=len(self.pose_graph.kfs))
                 self.pose_graph.optimize()
                 self._opt_edges = len(self.pose_graph.loop_edges)
+                self._rebuild_map()
                 # post-relaxation drift broadcast (updatePath's corrected
                 # path, pose_graph.cpp:674-696)
                 self._publish("path_update", r_drift=np.asarray(self.pose_graph.r_drift),
                               t_drift=np.asarray(self.pose_graph.t_drift))
         self._kf_index += 1
+        # the drift-corrected pose the graph stored (updatePose) — dense
+        # clouds are inserted at THIS pose, not the raw VIO one
+        return self.pose_graph.kfs[-1].pose
+
+    def _cam_pose(self, pose) -> torch.Tensor:
+        """world_T_cam on the device: the float32 body pose ∘ the camera
+        mount (as the JAX package composes them)."""
+        body = torch.as_tensor(np.asarray(pose, np.float32), device=self.device)
+        return pose_compose(body, self.estimator.core.state.ex_cam)
+
+    def _z_gate(self, pts_w: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+        """World-z insertion gate (pointWorld.z() > 2 || < -0.5 skip,
+        pose_graph.cpp:201-202)."""
+        return ok & (pts_w[:, 2] <= self.cfg.map.z_max) & (pts_w[:, 2] >= self.cfg.map.z_min)
+
+    def _integrate_tsdf(self, depth, color, cam_pose) -> None:
+        # the TSDF raster assumes a pinhole-style intrinsic grid (as does the
+        # reference's RGBD mapping node)
+        p = self._cam_host
+        self.tsdf.integrate(depth, color, cam_pose, float(p.fx), float(p.fy),
+                            float(p.cx), float(p.cy))
+
+    def _map_keyframe(self, pose, img, depth, register: Optional[int] = None):
+        """Insert one RGBD frame into the voxel map at ``pose`` (already
+        drift-corrected when the pose graph is active), sampled, lifted and
+        gated on the device. Applies the world-z insertion gate
+        (pose_graph.cpp:201-202). ``register`` ties the camera-frame cloud to
+        pose-graph keyframe ``kfs[register]`` so :meth:`_rebuild_map` can
+        re-anchor it after loop relaxations."""
+        cfg = self.cfg.map
+        img = np.asarray(img)
+        color = np.stack([img] * 3, -1) if img.ndim == 2 else img
+        with self.stats.time("map"):
+            depth_t = torch.as_tensor(np.asarray(depth, np.float32), device=self.device)
+            color_t = torch.as_tensor(np.asarray(color, np.float32), device=self.device)
+            gx, gy, d, rgb, ok = sample_rgbd(depth_t, color_t, stride=cfg.depth_stride,
+                                             boundary=cfg.depth_boundary)
+            uv = torch.stack([gx, gy], -1).to(torch.float32)
+            rays = self.cam.lift_projective(uv)
+            rays = rays / torch.clamp(torch.abs(rays[:, 2:3]), min=1e-9)  # z=1 for depth scaling
+            pts_cam = rays * d[:, None]
+            cam_pose = self._cam_pose(pose)
+            pts_w = pose_apply(cam_pose, pts_cam)
+            # the gate depends on the WORLD pose, so only the pre-gate
+            # validity mask is stored per keyframe and the gate is
+            # re-evaluated at rebuild time
+            ok_z = self._z_gate(pts_w, ok)
+            if "map_delta" in self._subs:
+                m = ok_z.cpu().numpy()
+                self._publish("map_delta", t=None, points=pts_w.cpu().numpy()[m],
+                              colors=rgb.cpu().numpy()[m])
+            self.voxel_map.insert(pts_w, rgb, ok_z)
+            if register is not None:
+                # fixed-shape cloud + pre-z-gate mask (the reference resizes
+                # point_rgbd to the inserted points, pose_graph.cpp:219-222)
+                self._kf_clouds[register] = (pts_cam, rgb, ok)
+                if self.tsdf is not None:
+                    # compact per-KF RGB-D copy (float16 depth, uint8 colour,
+                    # as the JAX package keeps it) so the TSDF can be
+                    # re-rastered at the relaxed poses after a loop closure
+                    self._kf_rgbd[register] = (depth_t.to(torch.float16),
+                                               color_t.to(torch.uint8))
+            if self.tsdf is not None:
+                self._integrate_tsdf(depth_t, color_t, cam_pose)
+
+    def _rebuild_map(self):
+        """Re-anchor the dense map after a pose-graph relaxation: clear the
+        voxel accumulator (and the TSDF) and re-insert every registered
+        keyframe cloud at its (now loop-corrected) graph pose —
+        ``updatePath``'s octree rebuild (pose_graph.cpp:875-930)."""
+        if self.voxel_map is None or not self._kf_clouds:
+            return
+        with self.stats.time("map"):
+            self.voxel_map.clear()
+            if self.tsdf is not None:
+                self.tsdf.clear()
+            for kf_pos, (pts_cam, rgb, ok) in self._kf_clouds.items():
+                cam_pose = self._cam_pose(self.pose_graph.kfs[kf_pos].pose)
+                pts_w = pose_apply(cam_pose, pts_cam)
+                # re-evaluate the world-z insertion gate at the relaxed pose
+                self.voxel_map.insert(pts_w, rgb, self._z_gate(pts_w, ok))
+                if self.tsdf is not None and kf_pos in self._kf_rgbd:
+                    depth, color = self._kf_rgbd[kf_pos]
+                    self._integrate_tsdf(depth.to(torch.float32), color.to(torch.float32),
+                                         cam_pose)
 
     # --------------------------------------------------------------- output
 
@@ -313,6 +452,20 @@ class GroundFusionSystem:
             # (globalOpt.cpp) — ROADMAP queue 3
             self.global_fusion.optimize()
             self.global_fusion.write_tum(os.path.join(self.out_dir, "global.txt"))
+        if self.voxel_map is not None:
+            pts, cols = self.voxel_map.export(self.cfg.map.density_gate)
+            if self.cfg.map.outlier_min_neighbors > 0:
+                # offline cloud conditioning before export — the PCL
+                # RadiusOutlierRemoval stage of the reference's mesh command
+                # (pose_graph_node.cpp:133-318)
+                keep = radius_outlier_filter(
+                    pts, radius=2.0 * self.cfg.map.voxel_size,
+                    min_neighbors=self.cfg.map.outlier_min_neighbors)
+                pts, cols = pts[keep], cols[keep]
+            write_cloud_ply(os.path.join(self.out_dir, "map.ply"), pts, cols)
+        if self.tsdf is not None:
+            self.tsdf.save_mesh_ply(os.path.join(self.out_dir, "mesh.ply"),
+                                    smooth_radius=self.cfg.map.mls_radius_m)
         self.dead_reckoning.write_tum(
             os.path.join(self.out_dir, "pure_imu.txt"),
             os.path.join(self.out_dir, "pure_wheel.txt"),

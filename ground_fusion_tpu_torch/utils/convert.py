@@ -8,7 +8,9 @@ out, and back. This module imports neither package's array library beyond
 ``torch``; the caller fetches the JAX arrays to the host first. Fields that
 this port does not have yet (line tracks) are dropped on the way in. The
 estimator's GNSS host state (expansion anchor, track counts, epochs, gates)
-is carried by :func:`gnss_host_state_from`.
+is carried by :func:`gnss_host_state_from`. The dense map's state (voxel
+hash, TSDF volume, occupancy grid) is carried into an existing map of the
+port by :func:`map_state_from`.
 """
 
 from __future__ import annotations
@@ -207,3 +209,27 @@ def pose_graph_from_numpy(src, pg) -> None:
     pg.earliest_loop = state["earliest_loop"]
     pg.r_drift = np.array(state["r_drift"], np.float64)
     pg.t_drift = np.array(state["t_drift"], np.float64)
+
+
+_MAP_STATE = {
+    "VoxelColorMap": ("counts", "color_sum", "pos_sum"),
+    "TsdfVolume": ("tsdf", "weight", "color"),
+    "OccupancyGrid2D": ("logodds",),
+}
+
+
+def map_state_from(src, dst) -> None:
+    """Copy the state arrays of a dense-map object of either package (a
+    ``VoxelColorMap``, ``TsdfVolume`` or ``OccupancyGrid2D``; the JAX
+    package's arrays fetched to the host or not) into the port's ``dst`` of
+    the same kind, in ``dst``'s dtypes and on its device. The geometry
+    (voxel size, capacity, origin, resolution) must already agree."""
+    names = _MAP_STATE[type(dst).__name__]
+    for n in names:
+        old = getattr(dst, n)
+        a = np.array(getattr(src, n))
+        if a.shape != tuple(old.shape):
+            raise ValueError(f"{type(dst).__name__}.{n}: shape {a.shape} != {tuple(old.shape)}")
+        setattr(dst, n, torch.as_tensor(a, device=old.device).to(old.dtype))
+    if hasattr(dst, "origin"):
+        dst.origin = np.array(src.origin, dtype=np.asarray(dst.origin).dtype)

@@ -4,6 +4,7 @@ compared entry for entry (J and r) on the synthetic window problem at
 the ground-truth case), and the rows vanish at ground truth. Also holds the helpers the other ``test_torch_*`` files share.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -20,6 +21,7 @@ from ground_fusion_tpu.estimator.layout import StateLayout as JLayout
 from ground_fusion_tpu.estimator.step import base_free_mask as jbase_free_mask
 from ground_fusion_tpu.preintegration.imu import ImuPreint as JImuPreint
 from ground_fusion_tpu.preintegration.wheel import WheelPreint as JWheelPreint
+from ground_fusion_tpu.sim import synthetic as jsim
 from ground_fusion_tpu.sim.synthetic import SimParams, build_window_problem
 from ground_fusion_tpu_torch.config import Config as TConfig
 from ground_fusion_tpu_torch.estimator import assembly as tasm
@@ -31,6 +33,30 @@ from ground_fusion_tpu_torch.utils import convert
 
 JD, TD = jnp.float64, torch.float64
 FOCAL = 460.0
+
+
+_JITTED_SIM = {}
+
+
+@contextlib.contextmanager
+def jitted_jax_simulator():
+    """The JAX package's simulator sample functions swapped for jitted ones
+    (built once per process) while the block runs, and put back after it:
+    eager, one ``build_window_problem`` dispatches for 5-25 s. The same
+    functions, compiled: values may differ from eager dispatch in the last
+    bits. (Jitting ``project_landmarks`` as well moved the landmarks by such
+    bits and flipped ``test_torch_solver.py::test_marginalize_second_new_matches_jax``,
+    whose rank-deficient prior amplifies rounding; it stays eager.)"""
+    names = ("imu_sample", "wheel_sample", "gt_pose7", "gt_velocity")
+    if not _JITTED_SIM:
+        _JITTED_SIM.update({n: jax.jit(getattr(jsim, n), static_argnums=1) for n in names})
+    mp = pytest.MonkeyPatch()
+    try:
+        for n in _JITTED_SIM:
+            mp.setattr(jsim, n, _JITTED_SIM[n])
+        yield
+    finally:
+        mp.undo()
 
 
 def small_cfg(cls, window_size=4, max_landmarks=16, **top):
@@ -64,7 +90,8 @@ class Problem:
         self.jcfg = small_cfg(JConfig, window_size, max_landmarks)
         self.tcfg = small_cfg(TConfig, window_size, max_landmarks)
         sp = SimParams(pix_noise=pix_noise)
-        prob = build_window_problem(self.jcfg, sp, t_start=0.0, dtype=JD)
+        with jitted_jax_simulator():
+            prob = build_window_problem(self.jcfg, sp, t_start=0.0, dtype=JD)
         f = self.jcfg.num_frames
         self.f = f
         self.jlayout = JLayout(f, max_landmarks)

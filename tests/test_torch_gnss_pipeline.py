@@ -110,8 +110,15 @@ def _record_last_gnss_step(est):
 def replay():
     from ground_fusion_tpu.estimator import step as jstep
 
+    from ground_fusion_tpu import pipeline as jpipeline
+
     mp = pytest.MonkeyPatch()
     mp.setattr(jstep, "reanchor_yaw", _jax_reanchor_until_aligned)   # read when the step is traced
+    # the JAX estimator's window preintegration, jitted for the replay (eager,
+    # the wheel's associative scan dispatches for ~40 s); the same function,
+    # compiled
+    mp.setattr(jpipeline, "preintegrate_imu_window", jax.jit(jpipeline.preintegrate_imu_window))
+    mp.setattr(jpipeline, "preintegrate_wheel_window", jax.jit(jpipeline.preintegrate_wheel_window))
     try:
         return _replay()
     finally:

@@ -27,6 +27,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "jaxlib" or m == "ground_fusion_tpu" or m.startswith("ground_fusion_tpu."))
 print("MODULES", len(names))
+print("NAMES", " ".join(names))
 print("BAD", bad)
 """
 
@@ -37,6 +38,9 @@ def test_no_module_of_the_port_imports_jax():
     assert r.returncode == 0, r.stderr[-2000:]
     lines = dict(l.split(" ", 1) for l in r.stdout.strip().splitlines())
     assert int(lines["MODULES"]) >= 30
+    walked = set(lines["NAMES"].split())
+    for name in ("estimator.sfm", "global_layers.dense_map", "global_layers.meshing"):
+        assert f"ground_fusion_tpu_torch.{name}" in walked, name
     assert lines["BAD"] == "[]", lines["BAD"]
 
 
@@ -53,7 +57,8 @@ def _no_gpu():
 @pytest.mark.parametrize("entry", ["resolve_device", "Estimator", "make_window_step",
                                    "FeatureTracker", "GroundFusionSystem", "PoseGraph",
                                    "KeyframeDatabase", "DBoW2Vocabulary", "load_binary",
-                                   "GlobalFusion", "cli"])
+                                   "GlobalFusion", "VoxelColorMap", "TsdfVolume",
+                                   "OccupancyGrid2D", "cli"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     """No 'cuda if available else cpu': with no device argument every entry
     point resolves to the GPU, and raises on a machine that has none."""
@@ -64,7 +69,9 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     from ground_fusion_tpu_torch.frontend.tracker import FeatureTracker
     from ground_fusion_tpu_torch.global_layers.bow import KeyframeDatabase
     from ground_fusion_tpu_torch.global_layers.dbow_vocab import DBoW2Vocabulary
+    from ground_fusion_tpu_torch.global_layers.dense_map import OccupancyGrid2D, VoxelColorMap
     from ground_fusion_tpu_torch.global_layers.global_fusion import GlobalFusion
+    from ground_fusion_tpu_torch.global_layers.meshing import TsdfVolume
     from ground_fusion_tpu_torch.global_layers.pose_graph import PoseGraph
     from ground_fusion_tpu_torch.pipeline import Estimator
     from ground_fusion_tpu_torch.system import GroundFusionSystem
@@ -86,6 +93,9 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
         "DBoW2Vocabulary": lambda: DBoW2Vocabulary(*tree, n_words=2),
         "load_binary": lambda: DBoW2Vocabulary.load_binary(vocab_path),
         "GlobalFusion": lambda: GlobalFusion(),
+        "VoxelColorMap": lambda: VoxelColorMap(capacity=16),
+        "TsdfVolume": lambda: TsdfVolume(resolution=4),
+        "OccupancyGrid2D": lambda: OccupancyGrid2D(size_m=1.0, resolution=0.5),
     }
     if entry == "cli":
         r = subprocess.run(
@@ -121,21 +131,45 @@ def test_lk_level_on_cpu_uses_the_plain_version_and_counts_no_launch():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("switch", ["map", "use_line", "use_yolo", "burst_chunk"])
+@pytest.mark.parametrize("switch", ["use_line", "use_yolo", "burst_chunk"])
 def test_unported_switches_raise_by_name(switch, tmp_path):
     import dataclasses
 
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = Config()
-    if switch == "map":
-        cfg = dataclasses.replace(cfg, **{switch: dataclasses.replace(getattr(cfg, switch), enabled=True)})
-    elif switch == "burst_chunk":
+    if switch == "burst_chunk":
         cfg = dataclasses.replace(cfg, burst_chunk=8)
     else:
         cfg = dataclasses.replace(cfg, **{switch: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GroundFusionSystem(cfg, str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("switch", ["map", "calibrate_extrinsic"])
+def test_map_and_extrinsic_calibration_configs_build(switch, tmp_path):
+    """``map`` (with its TSDF mesh) and ``solver.calibrate_extrinsic`` no
+    longer raise: the system builds its voxel map and TSDF on the device it
+    was given, and the estimator takes the hand-eye bootstrap."""
+    import dataclasses
+
+    from ground_fusion_tpu_torch.estimator.step import check_supported
+    from ground_fusion_tpu_torch.system import GroundFusionSystem
+
+    cfg = Config()
+    if switch == "map":
+        cfg = dataclasses.replace(cfg, map=dataclasses.replace(cfg.map, enabled=True, mesh=True,
+                                                                mesh_resolution=8))
+    else:
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                                  calibrate_extrinsic=True))
+    check_supported(cfg)
+    system = GroundFusionSystem(cfg, str(tmp_path), device="cpu")
+    if switch == "map":
+        assert system.voxel_map.counts.device.type == "cpu"
+        assert tuple(system.tsdf.tsdf.shape) == (8, 8, 8)
+    else:
+        assert system.voxel_map is None and system.estimator.cfg.solver.calibrate_extrinsic
 
 
 def test_m2dgrp_config_builds_with_gnss(tmp_path):

@@ -12,6 +12,7 @@ stationary to the accelerometer-variance test; one whose speed swings at
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import torch
 
 torch.set_num_threads(1)      # small tensors; leave the cores to the other test workers
 
+from ground_fusion_tpu import pipeline as jpipeline
 from ground_fusion_tpu.config import Config as JConfig
 from ground_fusion_tpu.pipeline import Estimator as JEstimator
 from ground_fusion_tpu.pipeline import FrameFeature as JFeature
@@ -51,11 +53,16 @@ def _count_calls(obj, name):
     return calls
 
 
+_JAX_STEP = {}
+
+
 def _replay(omega_mod_amp):
-    """Both estimators on the identical sensor and feature stream."""
+    """Both estimators on the identical sensor and feature stream. Both
+    replays share one JAX window program (the same config), compiled once."""
     jsp = jsim.SimParams(omega_mod_amp=omega_mod_amp, omega_mod_freq=4.0)
     tsp = tsim.SimParams(omega_mod_amp=omega_mod_amp, omega_mod_freq=4.0)
     je = JEstimator(_small(JConfig), dtype=jnp.float64)
+    je.step_fn = _JAX_STEP.setdefault("small", je.step_fn)
     je.native = None                      # Python queues in both, as the port has them
     te = TEstimator(_small(TConfig), dtype=torch.float64, device="cpu")
     wheel_init_calls = {"jax": _count_calls(je, "_wheel_excitation_init"),
@@ -102,8 +109,20 @@ def _replay(omega_mod_amp):
     return je, te, poses, gt, wheel_init_calls
 
 
+@pytest.fixture(scope="module")
+def jitted_jax_preintegration():
+    """The JAX estimator's window preintegration, jitted while this file
+    runs (eager, the wheel's associative scan dispatches for ~40 s a
+    replay); the same function, compiled."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jpipeline, "preintegrate_imu_window", jax.jit(jpipeline.preintegrate_imu_window))
+    mp.setattr(jpipeline, "preintegrate_wheel_window", jax.jit(jpipeline.preintegrate_wheel_window))
+    yield
+    mp.undo()
+
+
 @pytest.fixture(scope="module", params=[0.0, 0.1], ids=["stationary_init", "wheel_init"])
-def replay(request):
+def replay(request, jitted_jax_preintegration):
     return (request.param, *_replay(request.param))
 
 

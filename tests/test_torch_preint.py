@@ -2,6 +2,7 @@
 numpy-seeded intervals, float64. The port's sequential batched form against
 the JAX sequential form (1e-10) and the JAX associative-scan form (1e-8)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +33,13 @@ TD_WHEEL = np.float64(0.003)   # numpy scalars: a Python float would enter JAX w
 
 def _t(a):
     return torch.as_tensor(a)
+
+
+# The JAX package's window preintegration, jitted here: eager, its
+# associative-scan form dispatches for ~25 s a call; the same function,
+# compiled.
+_jax_imu_window = jax.jit(jbuf.preintegrate_imu_window, static_argnames="parallel")
+_jax_wheel_window = jax.jit(jbuf.preintegrate_wheel_window, static_argnames="parallel")
 
 
 def _max_err(jtuple, ttuple):
@@ -65,7 +73,7 @@ def test_imu_window_matches_jax(torch_imu, parallel, tol):
     n18 = jimu.noise_cov(0.08, 0.004, 4e-5, 2e-6, jnp.float64)
     buf = jbuf.ImuWindowBuffer(*[jnp.asarray(a) for a in
                                  (DTS, ACC, GYR, VALID, ACC[:, 0], GYR[:, 0])])
-    want = jbuf.preintegrate_imu_window(buf, jnp.asarray(SBS), n18, parallel=parallel)
+    want = _jax_imu_window(buf, jnp.asarray(SBS), n18, parallel=parallel)
     worst = _max_err(want, torch_imu)
     assert max(worst.values()) <= tol, worst
 
@@ -77,8 +85,8 @@ def test_wheel_window_matches_jax(torch_wheel, parallel, tol):
     buf = jbuf.WheelWindowBuffer(*[jnp.asarray(a) for a in
                                    (DTS, VEL, GYR, VALID, VEL[:, 0], GYR[:, 0])],
                                  bad=jnp.zeros(F, bool))
-    want = jbuf.preintegrate_wheel_window(buf, jnp.asarray(S_WHEEL), jnp.asarray(TD_WHEEL),
-                                          n12, parallel=parallel)
+    want = _jax_wheel_window(buf, jnp.asarray(S_WHEEL), jnp.asarray(TD_WHEEL), n12,
+                             parallel=parallel)
     worst = _max_err(want, torch_wheel)
     assert max(worst.values()) <= tol, worst
 

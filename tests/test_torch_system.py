@@ -133,18 +133,19 @@ def test_port_system_with_loop_closure_writes_loop_txt(tmp_path):
     """``loop.enabled`` on the CPU: the system builds a pose graph, every
     solved keyframe with enough landmarks is described and registered in
     it, ``loop.txt`` holds one line per registered keyframe, and the drift
-    correction is the identity while no loop has closed. ``map`` still
-    raises. Each keyframe's window payload — world landmarks, normalized
+    correction is the identity while no loop has closed. ``map`` is on (with
+    a 16³ TSDF): every registered keyframe's cloud is kept for the rebuild,
+    and ``finish`` writes ``map.ply`` and ``mesh.ply``. Each keyframe's
+    window payload — world landmarks, normalized
     observations, window pixels, and the FAST points' normalized
     coordinates — is held against the JAX package's geometry and camera on
     the same window: 1e-9 m and 1e-12 in float64, 1e-4 px and 1e-6 through
     the float32 camera."""
     seq = Sequence.load(_render(tmp_path))
     cfg = _system_cfg(TConfig)
-    cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, enabled=True))
-    with pytest.raises(NotImplementedError, match="'map'"):
-        TSystem(dataclasses.replace(cfg, map=dataclasses.replace(cfg.map, enabled=True)),
-                str(tmp_path / "no"), device="cpu")
+    cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, enabled=True),
+                              map=dataclasses.replace(cfg.map, enabled=True, mesh=True,
+                                                      mesh_resolution=16))
     ts = TSystem(cfg, str(tmp_path / "out"), device="cpu")
     pg = ts.pose_graph
     assert pg is not None and pg.device.type == "cpu" and pg.db.hists.device.type == "cpu"
@@ -183,10 +184,14 @@ def test_port_system_with_loop_closure_writes_loop_txt(tmp_path):
     assert np.linalg.norm(kf.win_pts3d - kf.pose[0:3], axis=1).max() < 10.0
     assert not pg.loop_edges and ts._kf_index == len(pg.kfs)
     assert np.array_equal(pg.r_drift, np.eye(3)) and not pg.t_drift.any()
+    assert sorted(ts._kf_clouds) == sorted(ts._kf_rgbd) == list(range(len(pg.kfs)))
+    assert ts.stats.counts["map"] == sum(ts.estimator.keyframe_flags)
     ts.finish()
     loop = np.loadtxt(tmp_path / "out" / "loop.txt", ndmin=2)
     assert loop.shape == (len(pg.kfs), 8) and np.isfinite(loop).all()
     np.testing.assert_allclose(loop[:, 1:4], [k.pose[0:3] for k in pg.kfs], atol=1e-6)
+    for name in ("map.ply", "mesh.ply"):
+        assert (tmp_path / "out" / name).read_text().startswith("ply\n")
 
 
 @pytest.fixture(scope="module")
