@@ -78,10 +78,25 @@ Phases (any failure ends the run with a non-zero exit code):
               and TSDF within their bounds, the rebuild's error under the
               test's bounds; prints ms per insert, integrate, rebuild and
               mesh extraction and the peak device memory.
+10. lines   — render a 40-frame drive with the smoke sequence's motion at
+              the camera and mounts of ``configs/groundchallenge.yaml``,
+              with the simulator's segments (``make_segments``: poles and
+              slanted edges) drawn as bright bars, and run it through
+              ``__main__.run`` on the GPU with a copy of that config in which
+              only ``use_line`` is switched on: ATE, no reboot, the line
+              table on the GPU, line slots active and solved at the end,
+              line rows live in at least one solve, one ``lk_track`` launch
+              per tracked frame and no plain version; the port's
+              ``LineTracker`` over the drive's images in float64 on the card
+              and on the CPU gives the same ids and endpoints within 1e-6 px.
+              Prints the ``track``, ``lines`` and ``solve`` stages beside
+              phase 4's, the frame of the first triangulated line, and the
+              operations of one frame with lines (``tools/count_step_ops.py
+              --use-line``, counted on the CPU).
 Then the card's line, the ``{"kernels": [...]}`` line (one entry per kernel
 entry point: ``lk_level``, ``lk_track``, ``hamming_matrix``,
-``hamming_match``; launches counted on the paths of phases 4, 5, 7 and 8), and
-the last line ``{"ok": true, "device": {...}}``.
+``hamming_match``; launches counted on the paths of phases 4, 5, 7, 8 and
+10), and the last line ``{"ok": true, "device": {...}}``.
 
 The script imports only the port (never JAX or the JAX package), needs no
 network, and starts no process that outlives it.
@@ -1898,6 +1913,209 @@ def phase_map(torch, work_dir):
     check(len(verts) > 0 and len(tris) > 0, "map: the TSDF gave no mesh")
 
 
+# -------------------------------------------------------------------------- 10
+
+
+# The lines drive: the smoke sequence (its motion, landmarks and seed) with
+# the simulator's segments drawn; configs/groundchallenge.yaml with only
+# use_line switched on (32 line slots, min_obs 5, 4 onlyLineOpt iterations).
+# 96 segments (48 poles, 48 slanted edges, 4 in the image at a time): the
+# drive moves forward, which gives a line ahead little of the 3.6 degrees of
+# plane parallax that triangulation's 0.998 gate asks for; with 24 or 48
+# segments no line triangulated in 40 frames (CPU rehearsals), with 96 one
+# does at frame 24.
+LINE_FRAMES = 40
+LINE_SEGMENTS, LINE_SEGMENT_SEED = 96, 2
+LINE_MIN_ACTIVE, LINE_MIN_SOLVED = 2, 1
+LINE_TRACKER_PX_TOL = 1e-6
+
+
+def line_config(work_dir: str) -> str:
+    """``configs/groundchallenge.yaml`` as a copy in the work directory with
+    ``use_line`` switched on and nothing else changed."""
+    with open(CONFIG_PATH) as src:
+        text = src.read()
+    check(text.count("use_line: false") == 1, "lines: the config's use_line line moved")
+    path = os.path.join(work_dir, "groundchallenge_lines.yaml")
+    with open(path, "w") as dst:
+        dst.write(text.replace("use_line: false", "use_line: true"))
+    return path
+
+
+def render_line_sequence(seq_dir: str, n_frames: int = LINE_FRAMES) -> str:
+    """The lines drive, from its seeds: the smoke sequence with the
+    simulator's segments drawn (CPU, float64)."""
+    from ground_fusion_tpu_torch.config import load_yaml
+    from ground_fusion_tpu_torch.sim.render import Mounts, render_sequence
+    from ground_fusion_tpu_torch.sim.synthetic import SimParams, make_segments
+
+    cfg = load_yaml(CONFIG_PATH)
+    cam = cfg.camera
+    sp = SimParams(**SMOKE_SIM)
+    return render_sequence(seq_dir, n_frames, cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
+                           cam.height, sp=sp, n_landmarks=SMOKE_LANDMARKS, seed=SMOKE_SEED,
+                           mounts=Mounts.from_config(cfg),
+                           segments=make_segments(LINE_SEGMENTS, sp, seed=LINE_SEGMENT_SEED))
+
+
+class LineProbe:
+    """Records, at each window solve of a drive, how many line slots have
+    live rows (``line_solve_mask``) and how many are triangulated, as device
+    tensors read after the drive (no synchronization inside it): wraps
+    ``estimator.step.solve_window`` and puts it back on ``close``."""
+
+    def __init__(self):
+        import torch
+
+        from ground_fusion_tpu_torch.estimator import step
+        from ground_fusion_tpu_torch.estimator.lines import line_solve_mask
+
+        self.step, self.live, self.solved = step, [], []
+        self._inner = inner = step.solve_window
+
+        def solve_window(state, tracks, inp, layout, params, *a, lines=None, **k):
+            if lines is not None:
+                f = lines.obs_valid.shape[1]
+                self.live.append(torch.sum(line_solve_mask(lines, f, inp.line_min_obs)))
+                self.solved.append(torch.sum(lines.active & lines.solve_ok))
+            return inner(state, tracks, inp, layout, params, *a, lines=lines, **k)
+
+        step.solve_window = solve_window
+
+    def counts(self):
+        """(live line slots, solved line slots) at each solve, on the host."""
+        return [int(x) for x in self.live], [int(x) for x in self.solved]
+
+    def close(self):
+        self.step.solve_window = self._inner
+
+
+def run_lines(torch, work_dir, device=None, n_frames: int = LINE_FRAMES):
+    """Render the lines drive and run it through ``__main__.run``; returns
+    (system, sequence directory, output directory, probe, wall seconds).
+    ``device=None`` is the GPU; the CPU rehearses it (slowly)."""
+    from ground_fusion_tpu_torch.__main__ import run
+
+    seq = os.path.join(work_dir, "lines_seq")
+    out = os.path.join(work_dir, "lines_out")
+    render_line_sequence(seq, n_frames)
+    cfg_path = line_config(work_dir)
+    probe = LineProbe()
+    try:
+        t0 = time.perf_counter()
+        system = run(cfg_path, seq, out, device=device)
+        if system.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        probe.close()
+    return system, seq, out, probe, wall
+
+
+def line_trackers_agree(torch, seq_dir: str, n_frames: int, devices=("cuda", "cpu")):
+    """The port's ``LineTracker`` over the drive's images in float64 on each
+    of ``devices``: checks the same ids every frame and endpoints within
+    ``LINE_TRACKER_PX_TOL`` px; returns (frames, ids seen, largest endpoint
+    difference in px)."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.config import load_yaml
+    from ground_fusion_tpu_torch.frontend.lines import LineTracker
+
+    cfg = load_yaml(CONFIG_PATH)
+    cam = cfg.camera
+    trackers = [LineTracker(cam.fx, cam.fy, cam.cx, cam.cy, max_lines=cfg.lines.max_lines,
+                            min_len_px=cfg.lines.min_seg_len_px, dtype=torch.float64, device=d)
+                for d in devices]
+    ids, worst = set(), 0.0
+    for k in range(n_frames):
+        img = np.load(os.path.join(seq_dir, "img", f"{k:05d}.npy"))
+        a, b = (t.track(img) for t in trackers)
+        check(sorted(a) == sorted(b), f"lines: frame {k}: the line ids on {devices[0]} and "
+              f"{devices[1]} differ ({sorted(a)} vs {sorted(b)})")
+        for lid in a:
+            d = np.abs((a[lid] - b[lid]) * np.array([cam.fx, cam.fy, cam.fx, cam.fy])).max()
+            worst = max(worst, float(d))
+        ids |= set(a)
+    check(worst <= LINE_TRACKER_PX_TOL,
+          f"lines: endpoints on {devices[0]} and {devices[1]} {worst:.3e} px apart")
+    return n_frames, len(ids), worst
+
+
+def count_ops_with_lines() -> str:
+    """The summary line of ``tools/count_step_ops.py --use-line`` (one frame
+    of the groundchallenge config with lines, counted on the CPU)."""
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "count_step_ops.py"),
+                        "--use-line", "--device", "cpu"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    check(r.returncode == 0, f"lines: tools/count_step_ops.py failed: {r.stderr[-2000:]}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def phase_lines(torch, work_dir, main_times):
+    import numpy as np
+
+    from ground_fusion_tpu_torch.ops.cuda import hamming, klt
+
+    _zero_counters(klt, hamming)
+    system, seq, out, probe, wall = run_lines(torch, work_dir)
+    counts = _read_counters(klt, hamming)
+    est = system.estimator
+    n_poses, ate, path = trajectory_ate(os.path.join(out, "vio.txt"), os.path.join(seq, "gt.csv"))
+    print(f"lines: {n_poses} poses over {path:.4f} m, ATE {ate:.5f} m (bounds {ATE_BOUND_M} m and "
+          f"{ATE_BOUND_OF_PATH:.0%} of the path), reboots {est.reboots}", flush=True)
+    check(n_poses >= 20, f"lines: only {n_poses} poses in vio.txt")
+    check(ate < ATE_BOUND_M, f"lines: ATE {ate:.4f} m is not below {ATE_BOUND_M} m")
+    check(ate < ATE_BOUND_OF_PATH * path,
+          f"lines: ATE {ate:.4f} m is not below {ATE_BOUND_OF_PATH:.0%} of {path:.3f} m")
+    check(est.reboots == 0, "lines: the estimator rebooted")
+    check(bool(torch.isfinite(est.core.state.poses).all()), "lines: non-finite poses in the window")
+    ln = est.core.lines
+    check(ln is not None and all(t.is_cuda for t in ln), "lines: the line table is not on the GPU")
+    check(est.core.state.poses.is_cuda and est.core.state.poses.dtype == torch.float32,
+          "lines: the state is not float32 on the GPU")
+    n_active = int(ln.active.sum())
+    n_solved = int((ln.active & ln.solve_ok).sum())
+    live, solved = probe.counts()
+    first = next((i for i, n in enumerate(solved) if n > 0), None)
+    first_frame = (int(round(est.trajectory[first][0] * SMOKE_SIM["frame_rate"]))
+                   if first is not None else None)
+    print(f"lines: {n_active} active line slots, {n_solved} solved at the end; {len(live)} solves, "
+          f"{sum(n > 0 for n in live)} with live line rows (at most {max(live, default=0)} lines); "
+          f"first triangulated line in the solve of frame {first_frame}; "
+          f"{len(est.line_slot_of)} line ids in slots", flush=True)
+    check(n_active >= LINE_MIN_ACTIVE, f"lines: only {n_active} active line slots at the end")
+    check(n_solved >= LINE_MIN_SOLVED, f"lines: only {n_solved} solved line slots at the end")
+    check(any(n > 0 for n in live), "lines: no solve had a live line row")
+
+    tracked_frames = system.stats.counts["track"] - 1
+    check(tracked_frames == LINE_FRAMES - 1, f"lines: {tracked_frames} tracked frames")
+    check(system.stats.counts["lines"] == LINE_FRAMES,
+          f"lines: the line tracker ran on {system.stats.counts['lines']} frames")
+    check(counts["lk_track"] == tracked_frames,
+          f"lines: {counts['lk_track']} lk_track launches, expected {tracked_frames}")
+    check(counts["lk_level"] == 0 and counts["plain"] == 0,
+          f"lines: {counts['lk_level']} lk_level launches, plain versions ran {counts['plain']} times")
+
+    stats = system.stats
+    times = {name: (stats.median(name), stats.mean(name)) for name in ("track", "lines", "solve")}
+    print(f"lines: track median {times['track'][0]:.2f} ms/frame (mean {times['track'][1]:.2f}; "
+          f"phase 4: {main_times['track'][0]:.2f}), lines median {times['lines'][0]:.2f} ms/frame "
+          f"(mean {times['lines'][1]:.2f}), solve median {times['solve'][0]:.2f} ms/frame (mean "
+          f"{times['solve'][1]:.2f}; phase 4: {main_times['solve'][0]:.2f}, mean "
+          f"{main_times['solve'][1]:.2f}) over {stats.counts['solve']} frames", flush=True)
+    print(f"lines: {LINE_FRAMES / wall:.3f} frames/s ({wall:.1f} s wall), launches {counts}", flush=True)
+
+    t0 = time.perf_counter()
+    n, n_ids, worst = line_trackers_agree(torch, seq, LINE_FRAMES)
+    print(f"lines: LineTracker in float64 on the card and the CPU over {n} frames: the same ids "
+          f"({n_ids} in all), endpoints at most {worst:.3e} px apart (bound {LINE_TRACKER_PX_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"lines: operations of one frame with lines, counted on the CPU by "
+          f"tools/count_step_ops.py --use-line: {count_ops_with_lines()}", flush=True)
+    return counts
+
+
 # ------------------------------------------------------------------------ main
 
 
@@ -1918,9 +2136,10 @@ def main() -> int:
         gnss_counts = phase_gnss(torch, work_dir, main_times)
         path_c_counts = phase_path_c(torch, work_dir, main_times)
         phase_map(torch, work_dir)
+        line_counts = phase_lines(torch, work_dir, main_times)
         for name, entry in entries.items():
             entry["launches"] = (main_counts[name] + revisit_counts[name] + gnss_counts[name]
-                                 + path_c_counts[name])
+                                 + path_c_counts[name] + line_counts[name])
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(card)

@@ -9,16 +9,36 @@ The ``rosrun vins vins_node config.yaml`` + ``rosbag play`` analog
 ``--device cpu`` is given; without a GPU and without that flag it exits with
 an error. GNSS epochs (``gnss.csv``, with ``iono.csv``) feed the tight
 coupling when the config enables it; GPS fixes (``gps.csv``) feed the global
-fusion. The burst mode and checkpointing options of the JAX package's CLI are
-not ported yet."""
+fusion.
+
+The JAX package's CLI also takes ``--burst K`` (execution modes, ROADMAP
+queue 1 item 6) and ``--save-state``, ``--resume P``, ``--load-graph P`` and
+``--load-grid P`` (checkpointing, item 7). They are not ported yet: each is
+refused by name with exit code 2, before anything runs."""
 
 from __future__ import annotations
 
 import sys
 
+# flags of the JAX package's CLI that this port does not implement yet:
+# flag → ROADMAP queue-1 item that brings it
+UNPORTED_FLAGS = {
+    "--burst": "6 (execution modes)",
+    "--save-state": "7 (checkpoint and sharding)",
+    "--resume": "7 (checkpoint and sharding)",
+    "--load-graph": "7 (checkpoint and sharding)",
+    "--load-grid": "7 (checkpoint and sharding)",
+}
+
 
 def main(argv=None):
     argv = list(argv if argv is not None else sys.argv[1:])
+    for arg in argv:
+        flag = arg.split("=", 1)[0]
+        if flag in UNPORTED_FLAGS:
+            print(f"{flag} is not ported to ground_fusion_tpu_torch yet "
+                  f"(ROADMAP.md, queue 1, item {UNPORTED_FLAGS[flag]})", file=sys.stderr)
+            return 2
     device = None
     if "--device" in argv:
         i = argv.index("--device")

@@ -15,8 +15,9 @@ the same rows feed either a joint dense solve or the Schur-complement path
 (:mod:`.solver`) — each visual factor touches exactly one landmark column.
 
 The GNSS rows (pseudorange/Doppler and the receiver clock chain, built in
-:mod:`..gnss.factors`) and the first-solve pose anchor join when the inputs
-carry them. The line row blocks of the JAX package are not ported yet.
+:mod:`..gnss.factors`), the first-solve pose anchor and the line rows
+(:mod:`.lines`, 4 columns per line after the depths) join when the inputs
+carry them.
 """
 
 from __future__ import annotations
@@ -84,6 +85,20 @@ def rows_to_dense(J_block: Tensor, col_idx: Tensor, r: Tensor,
     rm = torch.where(row_valid[:, None], r, torch.zeros_like(r))
     Jd = torch.zeros((b, rr, total), dtype=J_block.dtype, device=J_block.device)
     Jd.scatter_(2, col_idx[:, None, :].expand(b, rr, n), Jm)
+    return Jd.reshape(b * rr, total), rm.reshape(-1)
+
+
+def rows_to_dense_add(J_block: Tensor, col_idx: Tensor, r: Tensor,
+                      row_valid: Tensor, total: int):
+    """Like :func:`rows_to_dense` but with an ADDITIVE scatter: a factor whose
+    column indices coincide (the line anchor observation, where pose_i and
+    pose_j are the same block) accumulates the total derivative instead of
+    keeping one of the writes."""
+    b, rr, n = J_block.shape
+    Jm = torch.where(row_valid[:, None, None], J_block, torch.zeros_like(J_block))
+    rm = torch.where(row_valid[:, None], r, torch.zeros_like(r))
+    Jd = torch.zeros((b, rr, total), dtype=J_block.dtype, device=J_block.device)
+    Jd.scatter_add_(2, col_idx[:, None, :].expand(b, rr, n), Jm)
     return Jd.reshape(b * rr, total), rm.reshape(-1)
 
 
@@ -292,6 +307,10 @@ class SolveInputs(NamedTuple):
     # --- pose0 anchor (first GNSS-enabled solve, estimator.cpp:2943-2951) ---
     anchor_pose: Optional[Tensor] = None  # [7] anchor value for pose0
     anchor_active: Optional[Tensor] = None  # [] bool
+    # --- optional line landmarks (None ⇒ no line rows) ---
+    lines: object = None                  # estimator.lines.LineTracks | None
+    line_min_obs: int = 5                 # LINE_MIN_OBS
+    line_weight: float = 1.0              # lines.weight_scale
 
 
 def assemble_rows(state: WindowState, tracks: Tracks, inp: SolveInputs,
@@ -314,6 +333,12 @@ def assemble_rows(state: WindowState, tracks: Tracks, inp: SolveInputs,
                                           inp.ddt_weight, layout))
     if inp.anchor_pose is not None:
         rows.append(linearize_pose_anchor(state, inp.anchor_pose, inp.anchor_active, layout))
+    if inp.lines is not None:
+        from .lines import linearize_lines
+
+        rows.append(linearize_lines(
+            state, inp.lines, layout, sqrt_info_scale * inp.line_weight,
+            cauchy_delta, min_obs=inp.line_min_obs))
     J = torch.cat([a for a, _ in rows], dim=0)
     r = torch.cat([b for _, b in rows], dim=0)
     return J * inp.free_mask[None, :], r
@@ -390,4 +415,12 @@ def assemble_residuals(state: WindowState, tracks: Tracks, inp: SolveInputs,
     if inp.anchor_pose is not None:
         ra = POSE_ANCHOR_SQRT_INFO * pose_anchor_residual_raw(state.poses[0], inp.anchor_pose)
         parts.append(ra * inp.anchor_active.to(dtype))
+
+    # lines
+    if inp.lines is not None:
+        from .lines import line_residuals
+
+        parts.append(line_residuals(
+            state, inp.lines, sqrt_info_scale * inp.line_weight,
+            cauchy_delta, min_obs=inp.line_min_obs))
     return torch.cat(parts)

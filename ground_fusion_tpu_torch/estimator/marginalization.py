@@ -41,12 +41,13 @@ from .window import Tracks, WindowState, boxminus, slide_new_state, slide_old_st
 
 def _clipped_pinv(A: Tensor, eps: float = 1e-8):
     """Eigendecomposition pseudo-inverse with small-eigenvalue clipping
-    (marginalization_factor.cpp:278-285 ``saes.eigenvalues().array() > eps``)."""
-    A = 0.5 * (A + A.T)
+    (marginalization_factor.cpp:278-285 ``saes.eigenvalues().array() > eps``),
+    batched over leading axes."""
+    A = 0.5 * (A + A.mT)
     s, V = torch.linalg.eigh(A)
     ok = s > eps
     s_inv = torch.where(ok, 1.0 / torch.where(ok, s, torch.ones_like(s)), torch.zeros_like(s))
-    return (V * s_inv[None, :]) @ V.T
+    return (V * s_inv[..., None, :]) @ V.mT
 
 
 def _sqrt_factorize(H: Tensor, b: Tensor, eps: float = 1e-8):
@@ -112,10 +113,16 @@ def marginalize_old(
     sqrt_info_scale,
     cauchy_delta,
     plane_sqrt_info,
+    lines=None,
 ) -> MargPrior:
     """Drop frame 0 (pose+speed-bias) and the depths of landmarks anchored
     there; return the prior already permuted into the POST-slide layout with
-    the post-slide linearization point (``estimator.cpp:3334-3535``)."""
+    the post-slide linearization point (``estimator.cpp:3334-3535``).
+
+    When ``lines`` is given, the factors of lines anchored at frame 0 join
+    the dropped subset with their 4-dim orthonormal blocks eliminated
+    (``estimator.cpp:4680-4712``: drop set ``{2}``; the observation at the
+    dropped frame itself is skipped)."""
     f = state.poses.shape[0]
     nx = layout.nx
     ml = layout.max_landmarks
@@ -147,6 +154,14 @@ def marginalize_old(
         rows.append(linearize_clock_chain(
             state, inp.frame_dts, inp.gnss_ready, inp.ddt_weight, layout,
             pair_filter=only1))
+    if lines is not None:
+        from .lines import linearize_lines
+
+        line0 = lines.active & (lines.start_frame == 0)
+        rows.append(linearize_lines(
+            state, lines, layout, sqrt_info_scale * inp.line_weight,
+            cauchy_delta, min_obs=inp.line_min_obs, lm_filter=line0,
+            frame_filter=ar >= 1))
     J = torch.cat([a for a, _ in rows], dim=0) * inp.free_mask[None, :]
     r = torch.cat([b for _, b in rows], dim=0)
 
@@ -161,6 +176,18 @@ def marginalize_old(
                     torch.zeros_like(Hll))
     Hred = Hcc - (Hcl * w[None, :]) @ Hcl.T             # batched rank-1 down-dates
     bred = bc - Hcl @ (w * bl)
+
+    if layout.max_lines > 0:
+        # 4-dim line blocks: batched 4×4 block down-dates. No factor row
+        # touches both a depth and a line column, so eliminating depths then
+        # lines independently is exact.
+        Jn = J[:, nx + ml :].reshape(J.shape[0], layout.max_lines, 4)
+        Hnn = torch.einsum("rla,rlb->lab", Jn, Jn)      # [LL,4,4]
+        Hcn = torch.einsum("rc,rla->lca", Jc, Jn)       # [LL,NX,4]
+        bn = torch.einsum("rla,r->la", Jn, r)           # [LL,4]
+        inv = _clipped_pinv(Hnn)
+        Hred = Hred - torch.einsum("lca,lab,ldb->cd", Hcn, inv, Hcn)
+        bred = bred - torch.einsum("lca,lab,lb->c", Hcn, inv, bn)
 
     # drop set: pose0+sb0 tangent (15) + frame-0 GNSS clock dt (4) and ddt (1)
     # (estimator.cpp:3351-3420 drop_set construction)

@@ -33,6 +33,7 @@ from torch import Tensor
 from ..geometry.so3 import mat_to_quat, mat_to_ypr, quat_mul, quat_normalize, quat_to_mat, yaw_to_mat
 from .assembly import SolveInputs, assemble_residuals, assemble_rows, normal_equations
 from .layout import StateLayout
+from .lines import _solve_spd4
 from .window import Tracks, WindowState, retract
 
 
@@ -70,9 +71,12 @@ def _solve_delta(H, g, lam, free_mask):
 def _solve_delta_schur(H, g, lam, free_mask, layout: StateLayout):
     """Same damped system solved via the Schur complement (ceres
     ``DENSE_SCHUR``): landmark inverse-depth columns are mutually-orthogonal
-    scalar blocks, so eliminating them costs one batched down-date and
-    shrinks the Cholesky from ``total×total`` to ``nx×nx``."""
-    nx, ml = layout.nx, layout.max_landmarks
+    scalar blocks and line blocks are independent 4×4s, so eliminating them
+    costs two batched down-dates and shrinks the Cholesky from
+    ``total×total`` to ``nx×nx``. The line blocks' solves are the unrolled,
+    pivot-clamped 4×4 Cholesky of :func:`.lines._solve_spd4`, batched over
+    lines and camera columns."""
+    nx, ml, ll = layout.nx, layout.max_landmarks, layout.max_lines
     damp = lam * torch.diagonal(H) + 1e-8 + (1.0 - free_mask)
     Hd = H + torch.diag(damp)
     gn = -g * free_mask
@@ -88,9 +92,26 @@ def _solve_delta_schur(H, g, lam, free_mask, layout: StateLayout):
     Hcc = Hcc - (Hcd * wd[None, :]) @ Hcd.T
     bc = bc - Hcd @ (wd * bd)
 
+    if ll:
+        # 4×4 line blocks: the diagonal blocks of the trailing [4LL, 4LL]
+        # corner, gathered as [LL, 4, 4] (the advanced index goes first)
+        lines0 = nx + ml
+        Hcl = Hd[:nx, lines0:].reshape(nx, ll, 4)
+        ar = torch.arange(ll, device=H.device)
+        Hll = Hd[lines0:, lines0:].reshape(ll, 4, ll, 4)[ar, :, ar, :]
+        bl = gn[lines0:].reshape(ll, 4)
+        sol_bl = _solve_spd4(Hll, bl)                               # Hll⁻¹ bl
+        sol_Hcl = _solve_spd4(Hll[:, None], Hcl.transpose(0, 1))   # Hll⁻¹ Hclᵀ [LL,nx,4]
+        Hcc = Hcc - torch.einsum("cla,lna->cn", Hcl, sol_Hcl)
+        bc = bc - torch.einsum("cla,la->c", Hcl, sol_bl)
+
     dc = _cho_solve_or_nan(Hcc, bc)
     dd = wd * (bd - Hcd.T @ dc)
-    return torch.cat([dc, dd]) * free_mask
+    parts = [dc, dd]
+    if ll:
+        rhs_l = bl - torch.einsum("cla,c->la", Hcl, dc)
+        parts.append(_solve_spd4(Hll, rhs_l).reshape(-1))
+    return torch.cat(parts) * free_mask
 
 
 def _dogleg_step(H, g, free_mask, h_gn, radius):
@@ -133,33 +154,43 @@ def solve_window(
     layout: StateLayout,
     params: SolverParams,
     num_iters: int = 8,
+    lines=None,
     method: str = "lm",
     linear_solver: str = "dense",
 ):
     """Run the trust-region loop for ``num_iters`` fixed iterations; returns
-    (state', tracks', final_cost). Landmark depths update jointly through
-    the trailing columns.
+    (state', tracks', final_cost) — or (state', tracks', lines',
+    final_cost) when ``lines`` is given. Landmark depths (and the line
+    orthonormal blocks, when present) update jointly through the trailing
+    columns.
     """
     nx = layout.nx
     ml = layout.max_landmarks
     dtype, dev = state.poses.dtype, state.poses.device
+    with_lines = lines is not None
 
-    def apply_delta(st: WindowState, tr: Tracks, delta):
+    def apply_delta(st: WindowState, tr: Tracks, ln, delta):
         st2 = retract(st, delta[:nx], layout)
-        return st2, tr._replace(inv_depth=tr.inv_depth + delta[nx : nx + ml])
+        tr2 = tr._replace(inv_depth=tr.inv_depth + delta[nx : nx + ml])
+        if with_lines:
+            ln = ln._replace(orth=ln.orth + delta[nx + ml :].reshape(-1, 4))
+        return st2, tr2, ln
 
-    def lin_cost(st, tr):
+    def inputs(ln):
+        return inp._replace(lines=ln) if with_lines else inp
+
+    def lin_cost(st, tr, ln):
         J, r = assemble_rows(
-            st, tr, inp, layout, params.sqrt_info_scale, params.cauchy_delta,
+            st, tr, inputs(ln), layout, params.sqrt_info_scale, params.cauchy_delta,
             params.plane_sqrt_info,
         )
         return J, r, _cost(r)
 
-    def cost_only(st, tr):
+    def cost_only(st, tr, ln):
         # residual-only probe (no Jacobian build) for accept/reject; frozen
         # columns never move, so free_mask does not change r
         return _cost(assemble_residuals(
-            st, tr, inp, layout, params.sqrt_info_scale, params.cauchy_delta,
+            st, tr, inputs(ln), layout, params.sqrt_info_scale, params.cauchy_delta,
             params.plane_sqrt_info,
         ))
 
@@ -173,9 +204,9 @@ def solve_window(
     dogleg = method == "dogleg"
     reg = (torch.ones((), dtype=dtype, device=dev) if dogleg
            else params.lm_lambda0.to(dtype=dtype, device=dev))
-    _, _, cost = lin_cost(state, tracks)
+    _, _, cost = lin_cost(state, tracks, lines)
     for _ in range(num_iters):
-        J, r, c0 = lin_cost(state, tracks)
+        J, r, c0 = lin_cost(state, tracks, lines)
         H, g = normal_equations(J, r)
         if dogleg:
             # Powell dogleg (ceres DOGLEG, estimator.cpp:3306): `reg` is the
@@ -189,11 +220,13 @@ def solve_window(
             delta = _dogleg_step(H, g, inp.free_mask, h_gn, reg)
         else:
             delta = lin_solve(H, g, reg)
-        st_new, tr_new = apply_delta(state, tracks, delta)
-        c1 = cost_only(st_new, tr_new)
+        st_new, tr_new, ln_new = apply_delta(state, tracks, lines, delta)
+        c1 = cost_only(st_new, tr_new, ln_new)
         accept = c1 < c0
         state = _select(accept, st_new, state)
         tracks = _select(accept, tr_new, tracks)
+        if with_lines:
+            lines = _select(accept, ln_new, lines)
         if dogleg:
             pred = -(g @ delta + 0.5 * delta @ (H @ delta))
             rho = (c0 - c1) / torch.clamp(pred, min=1e-18)
@@ -207,6 +240,8 @@ def solve_window(
             reg = torch.where(accept, reg * params.lm_down, reg * params.lm_up)
             reg = torch.clamp(reg, 1e-10, 1e6)
         cost = torch.where(accept, c1, c0)
+    if with_lines:
+        return state, tracks, lines, cost
     return state, tracks, cost
 
 

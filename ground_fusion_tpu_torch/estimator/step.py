@@ -7,8 +7,11 @@ gauge, marginalize, slide. The keyframe decision is known on the host, so the
 step branches on it in Python and computes one marginalization only; every
 other gate stays a device tensor.
 
-Only the per-frame step is ported; the packed, burst, ingest and fleet
-step constructors of the JAX package and its line blocks are not.
+With ``use_line`` the step carries the line landmarks (:mod:`.lines`):
+triangulation, the line-only refinement and the cull before the solve, the
+line rows in it, the cull after it and both line slides. Only the per-frame
+step is ported; the packed, burst, ingest and fleet step constructors of the
+JAX package are not.
 """
 
 from __future__ import annotations
@@ -37,6 +40,13 @@ from .buffers import (
 )
 from .gates import device_frame_gates, moving_consistency_check, remove_outliers
 from .layout import PER_FRAME, StateLayout
+from .lines import (
+    only_line_opt,
+    remove_line_outliers,
+    slide_new_lines,
+    slide_old_lines,
+    triangulate_lines,
+)
 from .marginalization import marginalize_old, marginalize_second_new
 from .solver import SolverParams, reanchor_yaw, solve_window
 from .triangulation import triangulate_all, triangulate_svd
@@ -82,6 +92,7 @@ class EstimatorCore(NamedTuple):
     wheel_buf: WheelWindowBuffer
     prior: MargPrior
     gnss_obs: object = None    # gnss.factors.GnssObsWindow when GNSS is enabled
+    lines: object = None       # lines.LineTracks when use_line is on
 
 
 def base_free_mask(cfg: Config, layout: StateLayout) -> np.ndarray:
@@ -109,7 +120,6 @@ def base_free_mask(cfg: Config, layout: StateLayout) -> np.ndarray:
 def check_supported(cfg: Config) -> None:
     """Raise for configuration switches whose modules are not ported yet."""
     pending = [
-        (cfg.use_line, "use_line", "lines"),
         (cfg.use_yolo, "use_yolo", "detector, calibration, other camera models"),
         (bool(cfg.burst_chunk), "burst_chunk", "execution modes (burst, live, fleet)"),
     ]
@@ -146,7 +156,8 @@ def make_window_step(cfg: Config, device=None):
 def _build_step(cfg: Config, device):
     """The window step body."""
     check_supported(cfg)
-    layout = StateLayout(cfg.num_frames, cfg.solver.max_landmarks, 0)
+    layout = StateLayout(cfg.num_frames, cfg.solver.max_landmarks,
+                         cfg.lines.max_lines if cfg.use_line else 0)
     f = cfg.num_frames
     base_mask = torch.as_tensor(base_free_mask(cfg, layout))
     consts = {}
@@ -254,6 +265,23 @@ def _build_step(cfg: Config, device):
         else:
             tracks = triangulate_svd(state, tracks)
 
+        use_lines = cfg.use_line and core.lines is not None
+        lines = core.lines if use_lines else None
+        line_cull = dict(min_obs=cfg.lines.min_obs,
+                         max_reproj=cfg.lines.outlier_reproj_px / 500.0)
+        if use_lines:
+            # triangulate fresh lines, refine them with the poses fixed, then
+            # cull BEFORE the joint solve — the reference's onlyLineOpt ends
+            # with removeLineOutlier (estimator.cpp:4269). Triangulation waits
+            # for a valid prior: lines triangulated from the raw
+            # initialization poses would lock the window to the init error
+            lines = triangulate_lines(
+                state, lines, min_obs=cfg.lines.min_obs,
+                min_cos_theta=cfg.lines.min_cos_theta, enabled=core.prior.valid)
+            lines = only_line_opt(state, lines, params.sqrt_info_scale,
+                                  min_obs=cfg.lines.min_obs, iters=cfg.lines.only_opt_iters)
+            lines = remove_line_outliers(state, lines, **line_cull)
+
         if cfg.use_mcc:
             bad = moving_consistency_check(state, tracks, focal=cfg.solver.focal)
             tracks = remove_outliers(tracks, bad)
@@ -269,6 +297,8 @@ def _build_step(cfg: Config, device):
             prior=core.prior,
             g=g,
             free_mask=free_mask,
+            line_min_obs=cfg.lines.min_obs,
+            line_weight=cfg.lines.weight_scale,
         )
         if use_gnss:
             first = (flags.first_gnss_opt if flags.first_gnss_opt is not None
@@ -279,11 +309,17 @@ def _build_step(cfg: Config, device):
                 anchor_pose=state.poses[0], anchor_active=first)
 
         state_before = state
-        state, tracks, cost = solve_window(
+        solved = solve_window(
             state, tracks, inp, layout, params,
-            num_iters=cfg.solver.max_iters, method=cfg.solver.method,
-            linear_solver=cfg.solver.linear_solver,
+            num_iters=cfg.solver.max_iters, lines=lines,
+            method=cfg.solver.method, linear_solver=cfg.solver.linear_solver,
         )
+        if use_lines:
+            state, tracks, lines, cost = solved
+        else:
+            state, tracks, cost = solved
+        # anchor-camera lines (LINEINCAM) are gauge-invariant: the re-anchor
+        # below carries them along with their anchor pose
         anchored = reanchor_yaw(state_before, state)
         if use_gnss:
             # once GNSS-VI alignment has installed the ENU yaw and anchor,
@@ -295,12 +331,15 @@ def _build_step(cfg: Config, device):
                 poses=torch.where(keep, state.poses, anchored.poses),
                 sbs=torch.where(keep, state.sbs, anchored.sbs))
         state = anchored
+        if use_lines:
+            # post-solve cull (estimator.cpp:4580)
+            lines = remove_line_outliers(state, lines, **line_cull)
 
         # the host knows the keyframe decision: compute one branch only
         if flags.marg_old:
             prior = marginalize_old(
                 state, tracks, inp, layout, params.sqrt_info_scale,
-                params.cauchy_delta, params.plane_sqrt_info,
+                params.cauchy_delta, params.plane_sqrt_info, lines=lines,
             )
             core_new = EstimatorCore(
                 state=slide_old_state(state),
@@ -309,6 +348,7 @@ def _build_step(cfg: Config, device):
                 wheel_buf=slide_old_wheel_buffer(core.wheel_buf),
                 prior=prior,
                 gnss_obs=_slide_gnss_old(core.gnss_obs),
+                lines=slide_old_lines(state, lines) if use_lines else None,
             )
         else:
             prior = marginalize_second_new(state, core.prior, layout)
@@ -319,6 +359,7 @@ def _build_step(cfg: Config, device):
                 wheel_buf=slide_new_wheel_buffer(core.wheel_buf),
                 prior=prior,
                 gnss_obs=_slide_gnss_new(core.gnss_obs),
+                lines=slide_new_lines(lines) if use_lines else None,
             )
         # device-side failure flag (failureDetection's active bias checks,
         # estimator.cpp:2847-2888)

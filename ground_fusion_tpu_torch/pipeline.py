@@ -8,14 +8,15 @@ the host owns only queues, slot allocation and mode switches; all math runs
 on the device in :func:`~.estimator.step.make_window_step`'s step.
 
 Device↔host traffic per frame is two fetches — the landmark table's masks
-before the frame is written (keyframe gate + slot recycling) and the step's
-packed outputs after it — plus the uploads of the new interval and the new
-observations (with GNSS: one GNSS epoch slot and one packed flag upload).
+(and, with lines, the line slots' activity) before the frame is written
+(keyframe gate + slot recycling) and the step's packed outputs after it —
+plus the uploads of the new interval and the new observations (with GNSS:
+one GNSS epoch slot and one packed flag upload).
 GNSS epochs are gated and reduced on the host in float64
 (:mod:`.gnss.ingest`); only the reduced, small quantities reach the device.
 
-Only the per-frame path is ported: the burst, live and fleet modes, lines
-and checkpointing of the JAX package are not, and the sensor queues are
+Only the per-frame path is ported: the burst, live and fleet modes and
+checkpointing of the JAX package are not, and the sensor queues are
 plain Python lists (the C++ ring-buffer ingest is not ported yet).
 """
 
@@ -49,6 +50,7 @@ from .estimator.initialization import (
     solve_gyroscope_bias,
     stationary_bias_init,
 )
+from .estimator.lines import empty_line_tracks, slide_old_lines
 from .estimator.sfm import N_HYPOTHESES, relative_pose_ransac, sfm_construct
 from .estimator.step import EstimatorCore, StepFlags, make_window_step
 from .estimator.window import empty_state, empty_tracks, slide_old_state, slide_old_tracks
@@ -104,6 +106,8 @@ class Estimator:
         self.ts: list[float] = []
         self.slot_of: dict[int, int] = {}
         self.free_slots = list(range(cfg.solver.max_landmarks))
+        self.line_slot_of: dict[int, int] = {}
+        self.free_line_slots = list(range(cfg.lines.max_lines)) if cfg.use_line else []
         # raw queues since the previous frame
         self.imu_q: list[tuple[float, np.ndarray, np.ndarray]] = []
         self.wheel_q: list[tuple[float, np.ndarray, np.ndarray]] = []
@@ -133,6 +137,8 @@ class Estimator:
             prior=empty_prior(self.layout, f, **self._kw()),
             gnss_obs=(empty_gnss_obs(f, cfg.gnss.max_sats, **self._kw())
                       if cfg.gnss.enabled else None),
+            lines=(empty_line_tracks(cfg.lines.max_lines, f, **self._kw())
+                   if cfg.use_line else None),
         )
 
     def _initial_state(self):
@@ -283,13 +289,21 @@ class Estimator:
 
     def _fetch_track_masks(self):
         """ONE device→host fetch of what the host needs from the landmark
-        table this frame: (obs_valid [ML,F], active [ML], obs_xy [ML,F,2])."""
+        and line tables this frame: (obs_valid [ML,F], active [ML], obs_xy
+        [ML,F,2], line active [LL] or None)."""
         tr = self.core.tracks
         ml, f = tr.obs_valid.shape
-        packed = torch.cat(
-            [tr.obs_valid.to(tr.obs.dtype), tr.active.to(tr.obs.dtype)[:, None],
-             tr.obs[..., 0:2].reshape(ml, 2 * f)], dim=1).cpu().numpy()
-        return packed[:, :f] > 0.5, packed[:, f] > 0.5, packed[:, f + 1 :].reshape(ml, f, 2)
+        dt = tr.obs.dtype
+        parts = [tr.obs_valid.to(dt), tr.active.to(dt)[:, None], tr.obs[..., 0:2].reshape(ml, 2 * f)]
+        packed = torch.cat(parts, dim=1).reshape(-1)
+        ln = self.core.lines
+        if ln is not None:
+            packed = torch.cat([packed, ln.active.to(dt)])
+        flat = packed.cpu().numpy()
+        table = flat[: ml * (3 * f + 1)].reshape(ml, 3 * f + 1)
+        line_active = flat[table.size :] > 0.5 if ln is not None else None
+        return (table[:, :f] > 0.5, table[:, f] > 0.5, table[:, f + 1 :].reshape(ml, f, 2),
+                line_active)
 
     def _assign_slots(self, feats: dict[int, FrameFeature], slot_frame: int,
                       active_np: np.ndarray):
@@ -339,6 +353,51 @@ class Estimator:
                              start_frame=start_frame, inv_depth=inv_depth)
         self.core = self.core._replace(tracks=tr._replace(obs=obs, obs_valid=obs_valid))
 
+    def _assign_line_slots(self, line_obs: Optional[dict], slot_frame: int,
+                           active_np: Optional[np.ndarray]):
+        """Allocate/recycle line slots and write the frame's segment
+        observations into the padded LineTracks table (the line twin of
+        :meth:`_assign_slots`; the reference's ``lineFeaturePerId`` list,
+        feature_manager.h). One indexed write per table field."""
+        ln = self.core.lines
+        if ln is None or not line_obs:
+            return
+        for lid, slot in list(self.line_slot_of.items()):
+            if not active_np[slot]:
+                del self.line_slot_of[lid]
+                self.free_line_slots.append(slot)
+        rows, vals, new_slots = [], [], []
+        for lid, ob in line_obs.items():
+            slot = self.line_slot_of.get(lid)
+            if slot is None:
+                if not self.free_line_slots:
+                    continue
+                slot = self.free_line_slots.pop()
+                self.line_slot_of[lid] = slot
+                new_slots.append(slot)
+            rows.append(slot)
+            vals.append(np.asarray(ob, np.float64)[:4])
+        if not rows:
+            return
+        rows_t = self._upload(np.asarray(rows, np.int64), torch.int64)
+        obs, obs_valid = ln.obs.clone(), ln.obs_valid.clone()
+        obs[rows_t, slot_frame] = self._upload(np.stack(vals))
+        obs_valid[rows_t, slot_frame] = True
+        if new_slots:
+            na = self._upload(np.asarray(new_slots, np.int64), torch.int64)
+            # only this frame's column may be valid for a fresh slot
+            keep_col = torch.zeros(self.f, dtype=torch.bool, device=self.device)
+            keep_col[slot_frame] = True
+            obs_valid[na] = obs_valid[na] & keep_col[None, :]
+            active, solve_ok, start_frame, orth = (
+                t.clone() for t in (ln.active, ln.solve_ok, ln.start_frame, ln.orth))
+            active[na] = True
+            solve_ok[na] = False
+            start_frame[na] = slot_frame
+            orth[na] = 0.0
+            ln = ln._replace(active=active, solve_ok=solve_ok, start_frame=start_frame, orth=orth)
+        self.core = self.core._replace(lines=ln._replace(obs=obs, obs_valid=obs_valid))
+
     def _keyframe_decision(self, feats: dict[int, FrameFeature], ov, active, obs_xy) -> bool:
         """Parallax / track-count keyframe gate
         (``FeatureManager::addFeatureCheckParallax``, feature_manager.cpp:57-116).
@@ -379,24 +438,30 @@ class Estimator:
 
     # ------------------------------------------------------------- frame push
 
-    def input_frame(self, t: float, feats: dict[int, FrameFeature]) -> Optional[np.ndarray]:
-        """Process one synchronized camera frame's features. Returns the
-        newest optimized pose [7] once the estimator is running."""
-        ov, active, obs_xy = self._fetch_track_masks()
+    def input_frame(self, t: float, feats: dict[int, FrameFeature],
+                    line_obs: Optional[dict[int, np.ndarray]] = None) -> Optional[np.ndarray]:
+        """Process one synchronized camera frame's features. ``line_obs``
+        maps line id → normalized-plane endpoints [x1, y1, x2, y2] (the
+        ``trackImagewithline`` payload, estimator.cpp:275-322; ignored
+        unless ``use_line``). Returns the newest optimized pose [7] once the
+        estimator is running."""
+        ov, active, obs_xy, line_active = self._fetch_track_masks()
         is_keyframe = self._keyframe_decision(feats, ov, active, obs_xy)
         self._prev_feats = feats
+        lines = (line_obs, line_active)
 
         if self.solver_flag == self.INITIAL:
-            return self._fill_or_init(t, feats, active)
-        return self._nonlinear_frame(t, feats, is_keyframe, active)
+            return self._fill_or_init(t, feats, active, lines)
+        return self._nonlinear_frame(t, feats, is_keyframe, active, lines)
 
-    def _fill_or_init(self, t, feats, active_np):
+    def _fill_or_init(self, t, feats, active_np, lines):
         f = self.f
         k = self.frame_count
         iv, wv = self._drain_interval(t)
         self.ts.append(t)
         self._write_interval(min(k, f - 1), iv, wv)
         self._assign_slots(feats, min(k, f - 1), active_np)
+        self._assign_line_slots(lines[0], min(k, f - 1), lines[1])
 
         # wheel dead-reckoned pose prediction during fill (initFramePoseByOdom
         # analog, feature_manager.cpp:407-545)
@@ -444,6 +509,8 @@ class Estimator:
             tracks=slide_old_tracks(st, self.core.tracks),
             imu_buf=slide_old_imu_buffer(self.core.imu_buf),
             wheel_buf=slide_old_wheel_buffer(self.core.wheel_buf),
+            lines=(slide_old_lines(st, self.core.lines)
+                   if self.core.lines is not None else None),
         )
         self.ts.pop(0)
         self.frame_count -= 1
@@ -629,7 +696,7 @@ class Estimator:
 
     # ------------------------------------------------------------- solve step
 
-    def _nonlinear_frame(self, t, feats, is_keyframe, active_np):
+    def _nonlinear_frame(self, t, feats, is_keyframe, active_np, lines):
         f = self.f
         iv, wv = self._drain_interval(t)
         self.ts.append(t)
@@ -637,6 +704,7 @@ class Estimator:
             self.ts.pop(0)
         self._write_interval(f - 1, iv, wv)
         self._assign_slots(feats, f - 1, active_np)
+        self._assign_line_slots(lines[0], f - 1, lines[1])
         out = self._run_step(marg_old=is_keyframe, propagate_newest=True)
         self._check_failure()
         return out
@@ -664,6 +732,8 @@ class Estimator:
         self.ts = []
         self.slot_of = {}
         self.free_slots = list(range(self.cfg.solver.max_landmarks))
+        self.line_slot_of = {}
+        self.free_line_slots = list(range(self.cfg.lines.max_lines)) if self.cfg.use_line else []
         self.all_imu_window = []
         self._fp_seed = None
         self._last_sb = None

@@ -2,10 +2,11 @@
 directory layout of :mod:`..io.dataset` — gives the full system (KLT front
 end included) an end-to-end driveable input without any external dataset.
 
-Gaussian blobs at the projected landmark pixels over a dark noisy background,
-a depth image that carries each blob's range (and, if asked for, the range of
-an untextured cylindrical wall around the path behind every other pixel),
-and the IMU / wheel / ground truth files, all from a seed. The intrinsics come from the caller's config,
+Gaussian blobs at the projected landmark pixels over a dark noisy background
+(and, if asked for, bright bars along projected 3-D line segments, for the
+line detector), a depth image that carries each blob's range (and, if asked
+for, the range of an untextured cylindrical wall around the path behind every
+other pixel), and the IMU / wheel / ground truth files, all from a seed. The intrinsics come from the caller's config,
 and so may the sensor mounts (:class:`Mounts`): the simulator's camera always
 looks along the direction of travel, and the IMU (the body frame the
 estimator solves for) and the wheel odometer are placed relative to that
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from ..geometry.se3 import pose_compose
+from ..geometry.se3 import pose_apply_inv, pose_compose
 from ..utils import np_quat
 from .synthetic import (
     F64,
@@ -104,11 +105,40 @@ def wheel_at_mount(ts, sp: SimParams, r_x, t_x, t_io, q_io):
     return (vel_b + np.cross(gyr_b, np.asarray(t_io, np.float64))) @ r_io, gyr_b @ r_io
 
 
-def render_frame(uv_px, z, vis, rng, width: int, height: int, background=None):
-    """Gaussian blobs at projected landmark pixels over a dark background.
+SEGMENT_SIGMA_PX = 2.0
+SEGMENT_INTENSITY = 150.0
+
+
+def draw_segments(img: np.ndarray, segments_px) -> None:
+    """Add a bright bar along each pixel segment [x1, y1, x2, y2] to ``img``
+    in place: a Gaussian profile across it (``SEGMENT_SIGMA_PX``), so that
+    its gradient changes smoothly as the bar moves by fractions of a pixel,
+    and the same on both sides, so that a descriptor read across it does
+    not depend on which way the segment points."""
+    h, w = img.shape
+    pad = 4.0 * SEGMENT_SIGMA_PX
+    for x1, y1, x2, y2 in np.asarray(segments_px, np.float64).reshape(-1, 4):
+        x0, x9 = int(max(np.floor(min(x1, x2) - pad), 0)), int(min(np.ceil(max(x1, x2) + pad), w - 1))
+        y0, y9 = int(max(np.floor(min(y1, y2) - pad), 0)), int(min(np.ceil(max(y1, y2) + pad), h - 1))
+        if x0 > x9 or y0 > y9:
+            continue
+        ys, xs = np.mgrid[y0 : y9 + 1, x0 : x9 + 1].astype(np.float64)
+        dx, dy = x2 - x1, y2 - y1
+        s = np.clip(((xs - x1) * dx + (ys - y1) * dy) / max(dx * dx + dy * dy, 1e-12), 0.0, 1.0)
+        dist = np.hypot(xs - (x1 + s * dx), ys - (y1 + s * dy))
+        bar = SEGMENT_INTENSITY * np.exp(-0.5 * (dist / SEGMENT_SIGMA_PX) ** 2)
+        img[y0 : y9 + 1, x0 : x9 + 1] += bar.astype(img.dtype)
+
+
+def render_frame(uv_px, z, vis, rng, width: int, height: int, background=None,
+                 segments_px=None):
+    """Gaussian blobs at projected landmark pixels over a dark background,
+    and bright bars along ``segments_px`` [N,4] (pixel endpoints), if given.
     Returns (image [H,W] float32 in 0..255, depth [H,W] float32, 0 = none);
     ``background`` [H,W] is the depth behind the blobs (default none)."""
     img = rng.normal(8.0, 1.0, (height, width)).astype(np.float32)
+    if segments_px is not None:
+        draw_segments(img, segments_px)
     depth = (np.zeros((height, width), np.float32) if background is None
              else np.asarray(background, np.float32).copy())
     ys, xs = np.mgrid[0:7, 0:7] - 3
@@ -121,6 +151,20 @@ def render_frame(uv_px, z, vis, rng, width: int, height: int, background=None):
             img[vi - 3 : vi + 4, ui - 3 : ui + 4] += blob
             depth[vi - 3 : vi + 4, ui - 3 : ui + 4] = d
     return np.clip(img, 0, 255), depth
+
+
+def segment_pixels(pose, ex_cam, segments, fx: float, fy: float, cx: float, cy: float):
+    """Pixel endpoints [M,4] of the world ``segments`` [N,2,3] whose two
+    endpoints lie at least 0.3 m in front of the camera at ``pose`` ∘
+    ``ex_cam``."""
+    cam = pose_compose(torch.as_tensor(pose, dtype=F64), torch.as_tensor(ex_cam, dtype=F64))
+    segs = torch.as_tensor(np.asarray(segments), dtype=F64)
+    pa, pb = (pose_apply_inv(cam, segs[:, i]).numpy() for i in (0, 1))
+    front = (pa[:, 2] > 0.3) & (pb[:, 2] > 0.3)
+    k = np.array([fx, fy, fx, fy])
+    c = np.array([cx, cy, cx, cy])
+    uv = np.concatenate([pa[:, 0:2] / pa[:, 2:3], pb[:, 0:2] / pb[:, 2:3]], axis=1)
+    return (uv * k + c)[front]
 
 
 def wall_depth(cam_pose, fx: float, fy: float, cx: float, cy: float, width: int, height: int,
@@ -142,13 +186,16 @@ def wall_depth(cam_pose, fx: float, fy: float, cx: float, cy: float, width: int,
 def render_sequence(out_dir: str, n_frames: int, fx: float, fy: float, cx: float,
                     cy: float, width: int, height: int, sp: SimParams | None = None,
                     n_landmarks: int = 600, seed: int = 0,
-                    mounts: Mounts | None = None, wall_radius: float | None = None) -> str:
+                    mounts: Mounts | None = None, wall_radius: float | None = None,
+                    segments=None) -> str:
     """Write ``n_frames`` rendered frames plus ``imu.csv``, ``wheel.csv``,
     ``frames.csv`` and ``gt.csv`` (the IMU's pose) into ``out_dir``; returns
     ``out_dir``. ``mounts=None`` keeps the simulator's own sensor frames.
     ``wall_radius`` puts an untextured wall of that radius about the path's
     centre into the depth images (dense depth for the dense map); by default
-    only the blobs have a depth."""
+    only the blobs have a depth. ``segments`` [N,2,3] (world endpoints, e.g.
+    from :func:`..sim.synthetic.make_segments`) are drawn as bright bars
+    wherever both endpoints lie in front of the camera."""
     sp = sp if sp is not None else SimParams(omega=0.25)
     mounts = mounts if mounts is not None else Mounts()
     os.makedirs(os.path.join(out_dir, "img"), exist_ok=True)
@@ -176,7 +223,11 @@ def render_sequence(out_dir: str, n_frames: int, fx: float, fy: float, cx: float
         if wall_radius is not None:
             cam = pose_compose(pose, ex).numpy()
             background = wall_depth(cam, fx, fy, cx, cy, width, height, wall_radius)
-        img, depth = render_frame(uv_px, z.numpy(), vis.numpy(), rng, width, height, background)
+        seg_px = None
+        if segments is not None:
+            seg_px = segment_pixels(pose, ex, segments, fx, fy, cx, cy)
+        img, depth = render_frame(uv_px, z.numpy(), vis.numpy(), rng, width, height, background,
+                                  segments_px=seg_px)
         np.save(os.path.join(out_dir, "img", f"{k:05d}.npy"), img)
         np.save(os.path.join(out_dir, "img", f"{k:05d}_d.npy"), depth)
         frame_rows.append(f"{t:.6f},img/{k:05d}.npy,img/{k:05d}_d.npy")

@@ -190,3 +190,33 @@ def project_landmarks(pose7, ex_cam, pts_w):
     uv = pc[..., 0:2] / torch.clamp(z[..., None], min=1e-6)
     visible = (z > 0.3) & (torch.abs(uv[..., 0]) < 0.9) & (torch.abs(uv[..., 1]) < 0.7)
     return uv, z, visible
+
+
+def make_segments(n: int, sp: SimParams, seed: int = 2) -> np.ndarray:
+    """World 3-D line segments on the outer cylinder (mostly vertical poles
+    plus slanted edges) — the structural lines a LSD detector would find.
+    Returns endpoints [n, 2, 3]."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    rad = sp.radius + rng.uniform(1.5, 3.0, n)
+    base = np.stack([rad * np.cos(ang), rad * np.sin(ang), rng.uniform(-1.0, 0.5, n)], axis=-1)
+    d = rng.normal(size=(n, 3))
+    d[: n // 2] = np.array([0.0, 0.0, 1.0])     # poles
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return np.stack([base, base + 1.5 * d], axis=1)
+
+
+def project_segments(pose7, ex_cam, segs_w):
+    """Normalized-plane segment observations from one pose: obs4 [N,4]
+    (x1, y1, x2, y2) and visibility (both endpoints in front and in the
+    field of view)."""
+    cam = pose_compose(pose7, ex_cam)
+    pa = pose_apply_inv(cam, segs_w[:, 0])
+    pb = pose_apply_inv(cam, segs_w[:, 1])
+    za, zb = pa[..., 2], pb[..., 2]
+    ua = pa[..., 0:2] / torch.clamp(za[..., None], min=1e-6)
+    ub = pb[..., 0:2] / torch.clamp(zb[..., None], min=1e-6)
+    vis = ((za > 0.3) & (zb > 0.3)
+           & (torch.abs(ua[..., 0]) < 0.9) & (torch.abs(ua[..., 1]) < 0.7)
+           & (torch.abs(ub[..., 0]) < 0.9) & (torch.abs(ub[..., 1]) < 0.7))
+    return torch.cat([ua, ub], dim=-1), vis

@@ -6,9 +6,10 @@ through the KLT front-end, features into the sliding-window estimator,
 keyframes into the BoW/pose-graph loop closure and the dense voxel map (with
 its TSDF mesh), solved poses and NavSatFix fixes into the GPS/VIO global
 fusion. Everything is in-process — module-to-module calls replace ROS
-pub/sub (SURVEY §2 parallelism table). Lines and the detector of the JAX
-package are not ported yet; a config that turns one of them on raises at
-construction.
+pub/sub (SURVEY §2 parallelism table). With ``use_line`` a line tracker
+feeds segment observations to the estimator beside the point features. The
+detector of the JAX package is not ported yet; a config that turns it on
+raises at construction.
 
 Run from a dataset directory::
 
@@ -27,6 +28,7 @@ from . import resolve_device
 from .cameras.models import make_camera
 from .config import Config
 from .estimator.step import check_supported
+from .frontend.lines import LineTracker
 from .frontend.tracker import FeatureTracker
 from .geometry.se3 import pose_apply, pose_compose
 from .geometry.so3 import mat_to_quat
@@ -65,6 +67,13 @@ class GroundFusionSystem:
 
             self.tracker.set_fisheye_mask(load_mask(cfg.tracker.fisheye_mask_path))
         self.cam = self.tracker.cam
+
+        self.line_tracker = None
+        if cfg.use_line:
+            self.line_tracker = LineTracker(
+                cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy,
+                max_lines=cfg.lines.max_lines, min_len_px=cfg.lines.min_seg_len_px,
+                device=self.device)
         # the camera's parameters as host floats, for host-side projections
         self._cam_host = type(self.cam.params)(*[p.cpu() for p in self.cam.params])
 
@@ -166,17 +175,22 @@ class GroundFusionSystem:
                     ) -> Optional[np.ndarray]:
         """One synchronized camera frame end-to-end. ``img_right``: rectified
         stereo pair image (used when ``camera.baseline`` > 0 and no RGBD
-        depth is supplied). The two timed stages each end in a device→host
+        depth is supplied). The timed stages each end in a device→host
         fetch, so their wall-clock times include their device work."""
         self._seed_tracker_predictions()
-        # KLT consumes luminance
+        # KLT and the line tracker consume luminance
         img = np.asarray(img)
         img_gray = img.mean(axis=-1) if img.ndim == 3 else img
         with self.stats.time("track"):
             feats = self.tracker.track(t, img_gray, depth, img_right=img_right)
 
+        line_obs = None
+        if self.line_tracker is not None:
+            with self.stats.time("lines"):
+                line_obs = self.line_tracker.track(img_gray)
+
         with self.stats.time("solve"):
-            pose = self.estimator.input_frame(t, feats)
+            pose = self.estimator.input_frame(t, feats, line_obs=line_obs)
 
         if pose is not None:
             s_wheel = self.calib_dump.append(t, self.estimator.core.state)

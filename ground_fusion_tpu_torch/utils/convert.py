@@ -5,8 +5,8 @@ Both packages keep their state in NamedTuples with the same field names, so
 a value is carried across by walking the names: a tuple of numpy arrays (or
 any object with ``_fields``) goes in, the port's NamedTuple of tensors comes
 out, and back. This module imports neither package's array library beyond
-``torch``; the caller fetches the JAX arrays to the host first. Fields that
-this port does not have yet (line tracks) are dropped on the way in. The
+``torch``; the caller fetches the JAX arrays to the host first. Optional
+tables (GNSS observations, line tracks) stay ``None`` when absent. The
 estimator's GNSS host state (expansion anchor, track counts, epochs, gates)
 is carried by :func:`gnss_host_state_from`. The dense map's state (voxel
 hash, TSDF volume, occupancy grid) is carried into an existing map of the
@@ -20,6 +20,7 @@ import torch
 
 from ..estimator.assembly import MargPrior
 from ..estimator.buffers import ImuWindowBuffer, WheelWindowBuffer
+from ..estimator.lines import LineTracks
 from ..estimator.step import EstimatorCore, StepFlags
 from ..estimator.window import Tracks, WindowState
 from ..global_layers.pose_graph import Keyframe
@@ -87,6 +88,7 @@ def core_from_numpy(core_np, device, dtype) -> EstimatorCore:
         wheel_buf=wheel_buffer_from_numpy(_field(core_np, "wheel_buf"), device, dtype),
         prior=prior_from_numpy(_field(core_np, "prior"), device, dtype),
         gnss_obs=gnss_obs_from_numpy(_optional(core_np, "gnss_obs"), device, dtype),
+        lines=line_tracks_from_numpy(_optional(core_np, "lines"), device, dtype),
     )
 
 
@@ -99,6 +101,11 @@ def _optional(src, name):
 def gnss_obs_from_numpy(src, device, dtype):
     """A GNSS observation table (same field names) → the port's, or None."""
     return None if src is None else _flat(GnssObsWindow, src, device, dtype)
+
+
+def line_tracks_from_numpy(src, device, dtype):
+    """A line-track table (same field names) → the port's, or None."""
+    return None if src is None else _flat(LineTracks, src, device, dtype)
 
 
 def flags_from_numpy(flags_np, device, dtype) -> StepFlags:

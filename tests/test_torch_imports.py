@@ -39,7 +39,8 @@ def test_no_module_of_the_port_imports_jax():
     lines = dict(l.split(" ", 1) for l in r.stdout.strip().splitlines())
     assert int(lines["MODULES"]) >= 30
     walked = set(lines["NAMES"].split())
-    for name in ("estimator.sfm", "global_layers.dense_map", "global_layers.meshing"):
+    for name in ("estimator.sfm", "global_layers.dense_map", "global_layers.meshing",
+                 "frontend.lines", "estimator.lines"):
         assert f"ground_fusion_tpu_torch.{name}" in walked, name
     assert lines["BAD"] == "[]", lines["BAD"]
 
@@ -58,7 +59,7 @@ def _no_gpu():
                                    "FeatureTracker", "GroundFusionSystem", "PoseGraph",
                                    "KeyframeDatabase", "DBoW2Vocabulary", "load_binary",
                                    "GlobalFusion", "VoxelColorMap", "TsdfVolume",
-                                   "OccupancyGrid2D", "cli"])
+                                   "OccupancyGrid2D", "LineTracker", "cli"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     """No 'cuda if available else cpu': with no device argument every entry
     point resolves to the GPU, and raises on a machine that has none."""
@@ -66,6 +67,7 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
         pytest.skip("this machine has a GPU: the default device resolves")
     from ground_fusion_tpu_torch.cameras.models import PinholeParams
     from ground_fusion_tpu_torch.estimator.step import make_window_step
+    from ground_fusion_tpu_torch.frontend.lines import LineTracker
     from ground_fusion_tpu_torch.frontend.tracker import FeatureTracker
     from ground_fusion_tpu_torch.global_layers.bow import KeyframeDatabase
     from ground_fusion_tpu_torch.global_layers.dbow_vocab import DBoW2Vocabulary
@@ -96,6 +98,7 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
         "VoxelColorMap": lambda: VoxelColorMap(capacity=16),
         "TsdfVolume": lambda: TsdfVolume(resolution=4),
         "OccupancyGrid2D": lambda: OccupancyGrid2D(size_m=1.0, resolution=0.5),
+        "LineTracker": lambda: LineTracker(300.0, 300.0, 160.0, 120.0),
     }
     if entry == "cli":
         r = subprocess.run(
@@ -131,7 +134,7 @@ def test_lk_level_on_cpu_uses_the_plain_version_and_counts_no_launch():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("switch", ["use_line", "use_yolo", "burst_chunk"])
+@pytest.mark.parametrize("switch", ["use_yolo", "burst_chunk"])
 def test_unported_switches_raise_by_name(switch, tmp_path):
     import dataclasses
 
@@ -144,6 +147,53 @@ def test_unported_switches_raise_by_name(switch, tmp_path):
         cfg = dataclasses.replace(cfg, **{switch: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GroundFusionSystem(cfg, str(tmp_path), device="cpu")
+
+
+def test_use_line_config_builds_with_lines(tmp_path):
+    """``use_line`` no longer raises: on the CPU the system builds its line
+    tracker and the estimator its line table and a layout with 4 columns
+    per line slot; a frame with segment observations fills line slots."""
+    import dataclasses
+
+    from ground_fusion_tpu_torch.estimator.step import check_supported
+    from ground_fusion_tpu_torch.pipeline import FrameFeature
+    from ground_fusion_tpu_torch.system import GroundFusionSystem
+
+    cfg = load_yaml(os.path.join(ROOT, "configs", "groundchallenge.yaml"))
+    cfg = dataclasses.replace(cfg, use_line=True)
+    check_supported(cfg)
+    system = GroundFusionSystem(cfg, str(tmp_path), device="cpu")
+    est = system.estimator
+    ll = cfg.lines.max_lines
+    assert system.line_tracker is not None and system.line_tracker.device.type == "cpu"
+    assert est.layout.max_lines == ll
+    assert est.layout.total == est.layout.nx + cfg.solver.max_landmarks + 4 * ll
+    assert tuple(est.core.lines.obs.shape) == (ll, cfg.num_frames, 4)
+    est.input_frame(0.0, {0: FrameFeature(x=0.1, y=0.0)},
+                    line_obs={7: np.array([0.1, -0.2, 0.1, 0.2]), 9: np.array([-0.3, 0.0, 0.2, 0.05])})
+    assert sorted(est.line_slot_of) == [7, 9]
+    assert int(est.core.lines.active.sum()) == 2 and int(est.core.lines.obs_valid[:, 0].sum()) == 2
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--burst", "8"], "6"), (["--save-state"], "7"), (["--resume", "vio_state.npz"], "7"),
+    (["--load-graph", "pose_graph.npz"], "7"), (["--load-grid", "grid.pgm"], "7")],
+    ids=["burst", "save-state", "resume", "load-graph", "load-grid"])
+def test_cli_refuses_unported_flags_by_name(flag, item, monkeypatch, capsys):
+    """The JAX package's CLI flags that the port lacks are refused by name,
+    with the ROADMAP item that brings them and exit code 2, before anything
+    runs — never read as the output directory."""
+    from ground_fusion_tpu_torch import __main__ as cli
+
+    ran = []
+    monkeypatch.setattr(cli, "run", lambda *a, **k: ran.append((a, k)))
+    assert cli.main(["cfg.yaml", "seq", *flag]) == 2
+    assert cli.main(["cfg.yaml", "seq", "out", *flag, "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert flag[0] in err and f"item {item}" in err
+    assert ran == []
+    assert cli.main(["cfg.yaml", "seq", "out", "--device", "cpu"]) == 0
+    assert ran == [(("cfg.yaml", "seq", "out"), {"device": "cpu"})]
 
 
 @pytest.mark.parametrize("switch", ["map", "calibrate_extrinsic"])

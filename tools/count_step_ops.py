@@ -2,6 +2,7 @@
 """How many tensor operations one window step dispatches, and in which part.
 
     python3 tools/count_step_ops.py [--device cpu|cuda] [--config configs/m2dgrp.yaml]
+        [--use-line]
 
 Feeds the simulator's exact feature stream (no images; IMU and wheel at the
 config's mounts, as the renderer places them) to the port's ``Estimator`` at
@@ -12,7 +13,10 @@ a GPU, give or take views) and attributes it to the function of
 ``gnss/factors.py`` and the solve's pose-0 anchor rows. With a config that enables GNSS, each frame also gets a
 GNSS epoch (the receiver of ``chip_smoke.py``'s phase 7), and the counted
 frame is the third after the one in which GNSS-VI alignment happened, so the
-GNSS rows are live. The
+GNSS rows are live. With ``--use-line`` the config's ``use_line`` is switched
+on and each frame also carries the simulator's segments (``make_segments``,
+``project_segments``) as line observations; the line blocks of
+``estimator/lines.py`` are counted by name. The
 count does not depend on the device, so the default is the CPU. The wall
 times it prints are the host's, on whatever device was asked for.
 """
@@ -35,6 +39,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--config", default=os.path.join(ROOT, "configs", "groundchallenge.yaml"))
+    ap.add_argument("--use-line", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -42,6 +47,7 @@ def main() -> int:
     from torch.utils._python_dispatch import TorchDispatchMode
 
     import ground_fusion_tpu_torch.estimator.assembly as assembly_mod
+    import ground_fusion_tpu_torch.estimator.lines as lines_mod
     import ground_fusion_tpu_torch.estimator.step as step_mod
     import ground_fusion_tpu_torch.gnss.factors as gnss_mod
     from ground_fusion_tpu_torch.config import load_yaml
@@ -84,12 +90,20 @@ def main() -> int:
                  "clock_chain_residuals"):
         wrap(name, gnss_mod)
     wrap("linearize_pose_anchor", assembly_mod)
+    # the line rows and their residual probe, looked up at each call too
+    for name in ("linearize_lines", "line_residuals"):
+        wrap(name, lines_mod)
 
     cfg = load_yaml(args.config)
+    if args.use_line:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, use_line=True)
     sp = sim.SimParams(omega=0.15, frame_rate=30.0, stop_t1=-5.0, stop_t2=0.5, stop_tau=0.15)
     est = Estimator(cfg, device=args.device)
     ex = sim.body_T_cam()
     pts = torch.as_tensor(sim.make_landmarks(800, sp, seed=1), dtype=torch.float64)
+    segs = torch.as_tensor(sim.make_segments(64, sp, seed=2), dtype=torch.float64)
     frame_dt, imu_dt, wheel_dt = 1.0 / sp.frame_rate, 1.0 / sp.imu_rate, 1.0 / sp.wheel_rate
 
     mounts = Mounts.from_config(cfg)
@@ -121,22 +135,29 @@ def main() -> int:
         ids = np.nonzero(vis.numpy())[0][: cfg.tracker.max_features]
         feats = {int(i): FrameFeature(x=float(uv[i, 0]), y=float(uv[i, 1]), depth=float(z[i]))
                  for i in ids}
+        line_obs = None
+        if cfg.use_line:
+            obs4, lvis = sim.project_segments(sim.gt_pose7(t, sp), ex, segs)
+            line_obs = {int(i): obs4[i].numpy() for i in np.nonzero(lvis.numpy())[0]}
         if aligned_at is None and (world is None or est.gnss_aligned):
             aligned_at = k
         if k < WARM_FRAMES or aligned_at is None or k < aligned_at + 2:
-            est.input_frame(t, feats)
+            est.input_frame(t, feats, line_obs=line_obs)
             continue
         stats.clear()
         n_ops[0] = 0
         with Count():
             t0 = time.perf_counter()
-            pose = est.input_frame(t, feats)
+            pose = est.input_frame(t, feats, line_obs=line_obs)
             dt = time.perf_counter() - t0
         assert pose is not None, "the counted frame was not solved"
         print(f"one frame on {args.device}: {n_ops[0]} operations dispatched, {dt:.3f} s, "
               f"{len(feats)} features, config {os.path.basename(args.config)}"
               + (f", frame {k}, GNSS aligned at frame {aligned_at}, "
-                 f"{int(est.core.gnss_obs.valid.sum())} valid GNSS slots" if world else ""))
+                 f"{int(est.core.gnss_obs.valid.sum())} valid GNSS slots" if world else "")
+              + (f", {len(line_obs)} line observations, {int(est.core.lines.active.sum())} "
+                 f"active line slots ({int((est.core.lines.active & est.core.lines.solve_ok).sum())}"
+                 f" solved)" if cfg.use_line else ""))
         break
     else:
         raise SystemExit("GNSS-VI alignment did not happen within the warm-up")
