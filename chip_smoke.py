@@ -93,10 +93,30 @@ Phases (any failure ends the run with a non-zero exit code):
               phase 4's, the frame of the first triangulated line, and the
               operations of one frame with lines (``tools/count_step_ops.py
               --use-line``, counted on the CPU).
+11. modes   — the execution modes: (a) phase 4's rendered sequence and
+              config through ``__main__.main([..., "--burst", "8"])`` on the
+              GPU: as many poses as phase 4, ATE, no reboot, the state on the
+              GPU, one ``lk_track`` launch per tracked frame and no plain
+              version, every flushed chunk at most 8 frames (one of exactly
+              8), no ``_fetch_track_masks`` call on a staged frame (the
+              method wrapped here), ``loop.txt`` written; prints ``solve``
+              beside phase 4's, frames/s and the largest position
+              difference from phase 4's ``vio.txt``. (b) Three
+              ``Estimator``s in float64 on the GPU at the default config's
+              widths on the simulator drive of ``tests/test_pipeline.py``
+              (no images): per frame, live and in bursts of 8, every pose of
+              live and burst within 1e-3 m of the per-frame pose, live
+              flushing chunks of 1. (c) The fleet: 4 filled cores over 4
+              steps through ``make_window_burst_batched`` against four
+              ``make_window_burst`` runs at ``tests/test_burst.py``'s
+              tolerances; ms per step of both. (d) The log-depth window
+              preintegration against the sequential loop at 11 intervals of
+              48 IMU and 24 wheel samples, mixed masks, float64, to 1e-10;
+              ms per call of both.
 Then the card's line, the ``{"kernels": [...]}`` line (one entry per kernel
 entry point: ``lk_level``, ``lk_track``, ``hamming_matrix``,
-``hamming_match``; launches counted on the paths of phases 4, 5, 7, 8 and
-10), and the last line ``{"ok": true, "device": {...}}``.
+``hamming_match``; launches counted on the paths of phases 4, 5, 7, 8, 10
+and 11), and the last line ``{"ok": true, "device": {...}}``.
 
 The script imports only the port (never JAX or the JAX package), needs no
 network, and starts no process that outlives it.
@@ -194,6 +214,21 @@ GNSS_SATS, GNSS_SAT_SEED, GNSS_ELEVATION_DEG = 10, 3, (35.0, 80.0)
 GNSS_RCV_DT, GNSS_RCV_DDT = (15.0, 0.0, 0.0, 22.0), 4.0
 GPS_EVERY, GPS_ACCURACY_M = 3, 0.5
 GNSS_ECEF_BOUND_M = 1.0      # the newest pose in ECEF (tests/test_pipeline.py)
+# The execution modes (phase 11): phase 4's drive through the CLI with a
+# chunk of 8; the simulator drive of tests/test_pipeline.py (200 landmarks,
+# no images) per frame, live and in bursts of 8, at the default config's
+# widths in float64, poses within 1e-3 m of each other (tests/test_burst.py);
+# a fleet of 4 filled cores over 4 steps at the oracle's tolerances, in
+# float64 (the filled core's window is so ill-conditioned that a float32
+# burst ends up to 0.34 m from the same burst in float64, on the CPU: in
+# float32 any two orders of summation differ by more than the tolerances); the
+# log-depth preintegration against the sequential loop at the config's
+# capacities with mixed masks in float64.
+BURST_CHUNK = 8
+MODES_FRAMES, MODES_LANDMARKS, MODES_POSE_TOL_M = 24, 200, 1e-3
+FLEET_B, FLEET_K = 4, 4
+FLEET_TOL = dict(step_pose=1e-2, end_pose=1e-3, inv_depth=2e-3)
+PREINT_TOL = 1e-10
 PSR_F32_BOUND_M = 5e-3       # float32 rows at ground truth (tests/test_gnss.py)
 
 
@@ -851,7 +886,11 @@ def _read_counters(klt, hamming):
 
 
 def stage_times(stats) -> dict:
-    return {name: (stats.median(name), stats.mean(name)) for name in ("track", "solve")}
+    """(median, mean) ms of ``track`` and ``solve``; under ``sums`` the
+    seconds each stage took in all."""
+    out = {name: (stats.median(name), stats.mean(name)) for name in ("track", "solve")}
+    out["sums"] = {name: round(v / 1e3, 2) for name, v in sorted(stats.sums.items())}
+    return out
 
 
 def phase_main(torch, work_dir):
@@ -2116,6 +2155,358 @@ def phase_lines(torch, work_dir, main_times):
     return counts
 
 
+# -------------------------------------------------------------------------- 11
+
+
+def simulator_drive(n_frames: int, n_landmarks: int = 200, seed: int = 0, sp=None,
+                    segments: int = 0) -> list:
+    """The feature stream of ``tests/test_pipeline.py::run_pipeline`` from
+    the port's simulator (exact projected landmarks, no images, so no
+    tracker can make two runs differ): one entry per frame with its time,
+    the IMU and wheel samples since the previous frame (the first frame
+    carries the samples at t = 0), the visible features as ``id -> (x, y,
+    depth)`` and, with ``segments``, the visible segments' endpoints."""
+    import numpy as np
+    import torch
+
+    from ground_fusion_tpu_torch.sim import synthetic as sim
+
+    sp = sp if sp is not None else sim.SimParams(seed=seed)
+    ex = sim.body_T_cam(torch.float64)
+    pts_w = torch.as_tensor(sim.make_landmarks(n_landmarks, sp, seed=seed + 1))
+    segs_w = torch.as_tensor(sim.make_segments(segments, sp, seed=2)) if segments else None
+    frame_dt, imu_dt, wheel_dt = 1.0 / sp.frame_rate, 1.0 / sp.imu_rate, 1.0 / sp.wheel_rate
+    ts = [k * frame_dt for k in range(n_frames)]
+    t_imu = [np.array([0.0])] + [np.arange(t - frame_dt + imu_dt, t + 0.5 * imu_dt, imu_dt)
+                                 for t in ts[1:]]
+    t_wheel = [np.array([0.0])] + [np.arange(t - frame_dt + wheel_dt, t + 0.5 * wheel_dt, wheel_dt)
+                                   for t in ts[1:]]
+    acc, gyr = (x.numpy() for x in sim.imu_samples(np.concatenate(t_imu), sp))
+    vel, wgyr = (x.numpy() for x in sim.wheel_samples(np.concatenate(t_wheel), sp))
+    drive, i, j = [], 0, 0
+    for k, t in enumerate(ts):
+        ni, nw = len(t_imu[k]), len(t_wheel[k])
+        pose = sim.gt_pose7(t, sp)
+        uv, z, vis = (x.numpy() for x in sim.project_landmarks(pose, ex, pts_w))
+        fr = dict(t=t, gt=pose.numpy(),
+                  imu=list(zip(t_imu[k].tolist(), acc[i : i + ni], gyr[i : i + ni])),
+                  wheel=list(zip(t_wheel[k].tolist(), vel[j : j + nw], wgyr[j : j + nw])),
+                  feats={int(n): (float(uv[n, 0]), float(uv[n, 1]), float(z[n]))
+                         for n in np.nonzero(vis)[0]})
+        if segs_w is not None:
+            obs4, lvis = (x.numpy() for x in sim.project_segments(pose, ex, segs_w))
+            fr["lines"] = {int(n): obs4[n] for n in np.nonzero(lvis)[0]}
+        drive.append(fr)
+        i, j = i + ni, j + nw
+    return drive
+
+
+def filled_core(cfg, dtype, device, b: int = 0):
+    """(core, flags) of ``tests/test_burst.py::_filled_core`` in the port: an
+    empty window whose every landmark slot is active and observed in every
+    frame (observations from seed 0, measured depth 2 m, inverse depth
+    0.5·(1 + 0.1·b), so the B sequences of a fleet differ), full IMU and
+    wheel buffers of a vehicle at rest with 0.5 m/s on its wheels; the flags
+    of a keyframe step."""
+    import numpy as np
+    import torch
+
+    from ground_fusion_tpu_torch.estimator.assembly import empty_prior
+    from ground_fusion_tpu_torch.estimator.buffers import empty_imu_buffer, empty_wheel_buffer
+    from ground_fusion_tpu_torch.estimator.layout import StateLayout
+    from ground_fusion_tpu_torch.estimator.step import EstimatorCore, StepFlags
+    from ground_fusion_tpu_torch.estimator.window import empty_state, empty_tracks
+
+    f, ml = cfg.num_frames, cfg.solver.max_landmarks
+    kw = dict(dtype=dtype, device=device)
+    rng = np.random.default_rng(0)
+    obs = np.zeros((ml, f, 5), np.float32)
+    obs[..., 0] = rng.normal(0.1, 0.02, (ml, f))
+    obs[..., 1] = rng.normal(-0.05, 0.02, (ml, f))
+    obs[..., 4] = 2.0
+    ones = torch.ones(ml, dtype=torch.bool, device=device)
+    tracks = empty_tracks(ml, f, **kw)._replace(
+        active=ones, solve_ok=ones.clone(), obs=torch.as_tensor(obs).to(**kw),
+        obs_valid=torch.ones((ml, f), dtype=torch.bool, device=device),
+        inv_depth=torch.full((ml,), 0.5, **kw) * (1.0 + 0.1 * b))
+    ib = empty_imu_buffer(f, cfg.solver.max_imu_per_interval, **kw)
+    ib = ib._replace(dts=torch.full_like(ib.dts, 0.005), valid=torch.ones_like(ib.valid),
+                     acc=torch.cat([ib.acc[..., :2], torch.full_like(ib.acc[..., 2:], 9.805)], -1))
+    wb = empty_wheel_buffer(f, cfg.solver.max_wheel_per_interval, **kw)
+    wb = wb._replace(dts=torch.full_like(wb.dts, 0.01), valid=torch.ones_like(wb.valid),
+                     vel=torch.cat([torch.full_like(wb.vel[..., :1], 0.5), wb.vel[..., 1:]], -1))
+    core = EstimatorCore(state=empty_state(f, **kw), tracks=tracks, imu_buf=ib, wheel_buf=wb,
+                         prior=empty_prior(StateLayout(f, ml), f, **kw))
+    interval = torch.arange(f, device=device) >= 1
+    flags = StepFlags(marg_old=True, stationary=torch.zeros((), dtype=torch.bool, device=device),
+                      wheel_valid=interval, imu_valid=interval.clone(),
+                      td_obs=torch.zeros(f, **kw))
+    return core, flags
+
+
+def flags_batch(flags, margs):
+    """``flags`` with every tensor repeated along leading axes of the shape
+    of the host bool array ``margs`` ([K] or [K, B]), ``marg_old = margs``."""
+    import numpy as np
+
+    margs = np.asarray(margs, bool)
+    rep = lambda t: t.expand(margs.shape + tuple(t.shape)).clone()
+    return type(flags)(*[np.asarray(margs) if name == "marg_old" else
+                         (None if v is None else rep(v))
+                         for name, v in zip(flags._fields, flags)])
+
+
+def feed_drive(est, drive, frames) -> list:
+    """Feed ``drive[k]`` for ``k`` in ``frames`` to an ``Estimator``; the
+    pose each ``input_frame`` returned (or None), per frame."""
+    from ground_fusion_tpu_torch.pipeline import FrameFeature
+
+    out = []
+    for k in frames:
+        fr = drive[k]
+        for t, a, g in fr["imu"]:
+            est.input_imu(t, a, g)
+        for t, v, w in fr["wheel"]:
+            est.input_wheel(t, v, w)
+        feats = {i: FrameFeature(x=x, y=y, depth=d) for i, (x, y, d) in fr["feats"].items()}
+        out.append(est.input_frame(fr["t"], feats, line_obs=fr.get("lines")))
+    return out
+
+
+def _wall_ms(torch, device, fn, reps: int = 1) -> float:
+    """ms per call of ``fn`` on the host clock, synchronized on both ends."""
+    device = torch.device(device)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(torch, device)
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def phase_modes_cli(torch, work_dir, main_times, device="cuda"):
+    """11a: phase 4's sequence and config through the CLI with ``--burst 8``
+    (``device="cpu"`` rehearses it on the CPU)."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch import __main__ as cli
+    from ground_fusion_tpu_torch.ops.cuda import hamming, klt
+    from ground_fusion_tpu_torch.pipeline import Estimator
+
+    seq, out4 = os.path.join(work_dir, "seq"), os.path.join(work_dir, "out")
+    out = os.path.join(work_dir, "out_burst")
+    systems, staged_fetches, fill_fetches = [], [], []
+    run, fetch = cli.run, Estimator._fetch_track_masks
+
+    def capture(*a, **k):
+        systems.append(run(*a, **k))
+        return systems[-1]
+
+    def counted(self):
+        (staged_fetches if self.solver_flag == Estimator.NON_LINEAR else fill_fetches).append(1)
+        return fetch(self)
+
+    _zero_counters(klt, hamming)
+    cli.run, Estimator._fetch_track_masks = capture, counted
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main([_loop_config(work_dir), seq, out, "--burst", str(BURST_CHUNK)]
+                      + ([] if device == "cuda" else ["--device", device]))
+        _sync(torch, torch.device(device))
+        wall = time.perf_counter() - t0
+    finally:
+        cli.run, Estimator._fetch_track_masks = run, fetch
+    counts = _read_counters(klt, hamming)
+    check(rc == 0 and len(systems) == 1, f"modes: the CLI with --burst returned {rc}")
+    system = systems[0]
+    est = system.estimator
+
+    n4, _, _ = trajectory_ate(os.path.join(out4, "vio.txt"), os.path.join(seq, "gt.csv"))
+    n_poses, ate, path = trajectory_ate(os.path.join(out, "vio.txt"), os.path.join(seq, "gt.csv"))
+    sizes = est._burst_flushed_sizes
+    print(f"modes: --burst {BURST_CHUNK}: {n_poses} poses (phase 4: {n4}) over {path:.4f} m, ATE "
+          f"{ate:.5f} m, reboots {est.reboots}, chunks {sizes}", flush=True)
+    check(n_poses == n4, f"modes: {n_poses} poses with --burst, {n4} per frame")
+    check(ate < ATE_BOUND_M, f"modes: ATE {ate:.4f} m is not below {ATE_BOUND_M} m")
+    check(ate < ATE_BOUND_OF_PATH * path,
+          f"modes: ATE {ate:.4f} m is not below {ATE_BOUND_OF_PATH:.0%} of {path:.3f} m")
+    check(est.reboots == 0, "modes: the estimator rebooted")
+    check(est._burst_chunk == BURST_CHUNK, f"modes: burst chunk {est._burst_chunk}")
+    check(all(t.device.type == device for t in list(est.core.state) + list(est.core.tracks)),
+          f"modes: a state tensor is not on {device}")
+    check(sizes and max(sizes) == BURST_CHUNK and all(0 < n <= BURST_CHUNK for n in sizes),
+          f"modes: flushed chunks {sizes}")
+    check(sum(sizes) == n_poses - 1, f"modes: {sum(sizes)} staged frames for {n_poses} poses")
+    check(staged_fetches == [], f"modes: {len(staged_fetches)} mask fetches on staged frames")
+    tracked_frames = system.stats.counts["track"] - 1
+    check(tracked_frames == N_FRAMES - 1, f"modes: {tracked_frames} tracked frames")
+    check(counts["lk_track"] == tracked_frames,
+          f"modes: {counts['lk_track']} lk_track launches, expected {tracked_frames}")
+    check(counts["lk_level"] == 0 and counts["plain"] == 0,
+          f"modes: {counts['lk_level']} lk_level launches, plain versions ran {counts['plain']} times")
+    loop_lines = np.loadtxt(os.path.join(out, "loop.txt"), ndmin=2)
+    check(len(loop_lines) == len(system.pose_graph.kfs) >= 1,
+          f"modes: {len(loop_lines)} lines in loop.txt for {len(system.pose_graph.kfs)} keyframes")
+
+    a = np.loadtxt(os.path.join(out4, "vio.txt"), ndmin=2)
+    b = np.loadtxt(os.path.join(out, "vio.txt"), ndmin=2)
+    diff = float(np.abs(a[:, 1:4] - b[:, 1:4]).max()) if a.shape == b.shape else float("nan")
+    stats = system.stats
+    print(f"modes: --burst {BURST_CHUNK}: solve median {stats.median('solve'):.2f} ms/frame (mean "
+          f"{stats.mean('solve'):.2f}; phase 4: {main_times['solve'][0]:.2f}, mean "
+          f"{main_times['solve'][1]:.2f}) over {stats.counts['solve']} frames, "
+          f"{N_FRAMES / wall:.3f} frames/s ({wall:.1f} s wall), {len(fill_fetches)} mask fetches "
+          f"in the fill, {len(loop_lines)} keyframes in loop.txt, largest position difference "
+          f"from phase 4's vio.txt {diff:.5f} m (not bounded: without prediction seeding the "
+          f"tracker's features differ), launches {counts}", flush=True)
+    print(f"modes: --burst {BURST_CHUNK}: seconds by stage {stage_times(stats)['sums']} "
+          f"(phase 4: {main_times['sums']}), track median {stats.median('track'):.2f} ms/frame "
+          f"(phase 4: {main_times['track'][0]:.2f})", flush=True)
+    return counts
+
+
+def phase_modes_replay(torch, device="cuda", n_frames=MODES_FRAMES):
+    """11b: per frame, live and bursts of 8 on the same features."""
+    import copy
+
+    import numpy as np
+
+    from ground_fusion_tpu_torch.config import Config
+    from ground_fusion_tpu_torch.pipeline import Estimator
+
+    cfg = Config()
+    drive = simulator_drive(n_frames, n_landmarks=MODES_LANDMARKS)
+    est = Estimator(cfg, dtype=torch.float64, device=None if device == "cuda" else device)
+    feed_drive(est, drive, range(cfg.num_frames))
+    check(est.solver_flag == Estimator.NON_LINEAR, "modes: the replay did not initialize")
+    runs = {}
+    for mode in ("frame", "live", "burst"):
+        e = copy.deepcopy(est)
+        if mode == "live":
+            e.enable_live()
+        elif mode == "burst":
+            e.enable_burst(BURST_CHUNK)
+        t0 = time.perf_counter()
+        feed_drive(e, drive, range(cfg.num_frames, n_frames))
+        e.flush_burst()
+        _sync(torch, e.device)
+        runs[mode] = (e, time.perf_counter() - t0)
+    ref = np.stack([p[0:3] for _, p in runs["frame"][0].trajectory])
+    n = n_frames - cfg.num_frames
+    line = [f"{n} frames after the first solve: per frame {runs['frame'][1]:.1f} s"]
+    for mode in ("live", "burst"):
+        e, wall = runs[mode]
+        got = np.stack([p[0:3] for _, p in e.trajectory])
+        check(got.shape == ref.shape, f"modes: {mode} gave {len(got)} poses, per frame {len(ref)}")
+        worst = float(np.abs(got - ref).max())
+        check(worst <= MODES_POSE_TOL_M, f"modes: {mode} poses {worst:.3e} m from per frame")
+        check(e.core.state.poses.device.type == device and e.reboots == 0,
+              f"modes: {mode} state or reboot")
+        line.append(f"{mode} {wall:.1f} s (chunks {e._burst_flushed_sizes}, poses at most "
+                    f"{worst:.3e} m from per frame)")
+    check(set(runs["live"][0]._burst_flushed_sizes) == {1}, "modes: live flushed a chunk of more than 1")
+    print(f"modes: float64 on {device}, {cfg.num_frames}-frame window, "
+          f"{cfg.solver.max_landmarks} landmarks: " + "; ".join(line), flush=True)
+
+
+def phase_modes_fleet(torch, device="cuda", cfg=None):
+    """11c: the fleet against four single bursts (at the default config, or
+    ``cfg`` to rehearse it small)."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.config import Config
+    from ground_fusion_tpu_torch.estimator.step import make_window_burst, make_window_burst_batched
+    from ground_fusion_tpu_torch.utils.convert import stack_cores, unstack_cores
+
+    cfg = cfg or Config()
+    fleet, _ = make_window_burst_batched(cfg, None if device == "cuda" else device)
+    single, _ = make_window_burst(cfg, None if device == "cuda" else device)
+    margs = np.array([[(k + b) % 2 == 0 for b in range(FLEET_B)] for k in range(FLEET_K)])
+    cores = [filled_core(cfg, torch.float64, device, b)[0] for b in range(FLEET_B)]
+    _, flags = filled_core(cfg, torch.float64, device)
+    res = {}
+    fleet_ms = _wall_ms(torch, device, lambda: res.update(fleet=fleet(stack_cores(cores),
+                                                                      flags_batch(flags, margs))))
+    singles_ms = _wall_ms(torch, device, lambda: res.update(singles=[
+        single(cores[b], flags_batch(flags, margs[:, b])) for b in range(FLEET_B)]))
+    cb, ob = res["fleet"]
+    worst = dict(step_pose=0.0, end_pose=0.0, inv_depth=0.0)
+    for b, (end, (cs, os_)) in enumerate(zip(unstack_cores(cb), res["singles"])):
+        for name, x, y in (("step_pose", ob["pose"][:, b], os_["pose"]),
+                           ("end_pose", end.state.poses, cs.state.poses),
+                           ("inv_depth", end.tracks.inv_depth, cs.tracks.inv_depth)):
+            tol = FLEET_TOL[name]
+            rtol = 1e-2 if name == "step_pose" else 1e-3
+            check(bool(torch.allclose(x, y, rtol=rtol, atol=tol)),
+                  f"modes: fleet sequence {b}: {name} off by {float((x - y).abs().max()):.3e}")
+            worst[name] = max(worst[name], float((x - y).abs().max()))
+        check(torch.equal(end.wheel_buf.bad, cs.wheel_buf.bad), f"modes: fleet sequence {b}: wheel_buf.bad")
+    print(f"modes: fleet of {FLEET_B} ({cfg.num_frames}-frame window, {cfg.solver.max_landmarks} "
+          f"landmarks), float64 on {device}, {FLEET_K} steps (marg_old = "
+          f"(k + b) % 2 == 0): {fleet_ms / FLEET_K:.1f} ms per step of the fleet, "
+          f"{singles_ms / FLEET_K:.1f} ms per step of the {FLEET_B} single bursts together; "
+          f"largest differences {worst}", flush=True)
+
+
+def phase_modes_preint(torch, device="cuda"):
+    """11d: the log-depth window preintegration against the sequential loop."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.config import Config
+    from ground_fusion_tpu_torch.estimator import buffers
+    from ground_fusion_tpu_torch.preintegration.imu import noise_cov
+    from ground_fusion_tpu_torch.preintegration.wheel import wheel_noise_cov
+
+    cfg = Config()
+    f, ki, kw = cfg.num_frames, cfg.solver.max_imu_per_interval, cfg.solver.max_wheel_per_interval
+    rng = np.random.default_rng(11)
+    dev = dict(dtype=torch.float64, device=device)
+
+    def masks(k):
+        m = rng.uniform(size=(f, k)) < 0.6
+        m[0], m[1], m[2] = True, False, np.arange(k) < k // 3
+        return torch.as_tensor(m, device=device)
+
+    t = lambda a: torch.as_tensor(a).to(**dev)
+    ib = buffers.ImuWindowBuffer(
+        dts=t(rng.uniform(0.004, 0.006, (f, ki))),
+        acc=t(rng.normal(0, 1.0, (f, ki, 3)) + [0, 0, 9.8]), gyr=t(rng.normal(0, 0.5, (f, ki, 3))),
+        valid=masks(ki), acc0=t(rng.normal(0, 1.0, (f, 3)) + [0, 0, 9.8]),
+        gyr0=t(rng.normal(0, 0.5, (f, 3))))
+    wb = buffers.WheelWindowBuffer(
+        dts=t(rng.uniform(0.008, 0.012, (f, kw))),
+        vel=t(rng.normal(0.5, 0.1, (f, kw, 3)) * [1, 0.05, 0.0]), gyr=t(rng.normal(0, 0.3, (f, kw, 3))),
+        valid=masks(kw), vel0=t(rng.normal(0.5, 0.1, (f, 3)) * [1, 0.05, 0.0]),
+        gyr0=t(rng.normal(0, 0.3, (f, 3))), bad=torch.zeros(f, dtype=torch.bool, device=device))
+    sbs = t(rng.normal(0, 0.05, (f, 9)))
+    s_wheel, td = t([1.01, 0.99, 1.002]), t(0.003)
+    n18 = noise_cov(cfg.imu.acc_n, cfg.imu.gyr_n, cfg.imu.acc_w, cfg.imu.gyr_w, **dev)
+    n12 = wheel_noise_cov(cfg.wheel.vel_n, cfg.wheel.gyr_n, **dev)
+    calls = {
+        "imu": lambda par: buffers.preintegrate_imu_window(ib, sbs, n18, parallel=par),
+        "wheel": lambda par: buffers.preintegrate_wheel_window(wb, s_wheel, td, n12, parallel=par),
+    }
+    line = []
+    for name, fn in calls.items():
+        par, seq = fn(True), fn(False)
+        worst = max(float((a - b).abs().max()) for a, b in zip(par, seq))
+        check(worst <= PREINT_TOL, f"modes: {name} log-depth preintegration {worst:.3e} from sequential")
+        ms_par = _wall_ms(torch, device, lambda: fn(True), reps=5)
+        ms_seq = _wall_ms(torch, device, lambda: fn(False), reps=5)
+        line.append(f"{name} log-depth {ms_par:.2f} ms, sequential {ms_seq:.2f} ms a call "
+                    f"(largest difference {worst:.3e})")
+    print(f"modes: window preintegration at {f} intervals of {ki} IMU and {kw} wheel samples, "
+          f"float64 on {device}: " + "; ".join(line), flush=True)
+
+
+def phase_modes(torch, work_dir, main_times):
+    counts = phase_modes_cli(torch, work_dir, main_times)
+    phase_modes_replay(torch)
+    phase_modes_fleet(torch)
+    phase_modes_preint(torch)
+    return counts
+
+
 # ------------------------------------------------------------------------ main
 
 
@@ -2137,9 +2528,10 @@ def main() -> int:
         path_c_counts = phase_path_c(torch, work_dir, main_times)
         phase_map(torch, work_dir)
         line_counts = phase_lines(torch, work_dir, main_times)
+        mode_counts = phase_modes(torch, work_dir, main_times)
         for name, entry in entries.items():
             entry["launches"] = (main_counts[name] + revisit_counts[name] + gnss_counts[name]
-                                 + path_c_counts[name] + line_counts[name])
+                                 + path_c_counts[name] + line_counts[name] + mode_counts[name])
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(card)

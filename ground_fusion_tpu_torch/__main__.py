@@ -1,20 +1,22 @@
 """CLI entry: run the full system on a converted sequence directory.
 
     python -m ground_fusion_tpu_torch <config.yaml> <sequence_dir> [out_dir]
-        [--device cuda|cpu]
+        [--burst K] [--device cuda|cpu]
 
 The ``rosrun vins vins_node config.yaml`` + ``rosbag play`` analog
 (README.md:146-161) for the file-driven dataset layout of
 :mod:`ground_fusion_tpu_torch.io.dataset`. The system runs on the GPU unless
 ``--device cpu`` is given; without a GPU and without that flag it exits with
-an error. GNSS epochs (``gnss.csv``, with ``iono.csv``) feed the tight
-coupling when the config enables it; GPS fixes (``gps.csv``) feed the global
-fusion.
+an error. ``--burst K`` stages K frames per flush (replay mode, see
+``Config.burst_chunk``; ``--burst 1`` is live mode); a missing or
+non-integer K exits with code 2. GNSS epochs (``gnss.csv``, with
+``iono.csv``) feed the tight coupling when the config enables it; GPS fixes
+(``gps.csv``) feed the global fusion.
 
-The JAX package's CLI also takes ``--burst K`` (execution modes, ROADMAP
-queue 1 item 6) and ``--save-state``, ``--resume P``, ``--load-graph P`` and
-``--load-grid P`` (checkpointing, item 7). They are not ported yet: each is
-refused by name with exit code 2, before anything runs."""
+The JAX package's CLI also takes ``--save-state``, ``--resume P``,
+``--load-graph P`` and ``--load-grid P`` (checkpointing, ROADMAP queue 1
+item 7). They are not ported yet: each is refused by name with exit code 2,
+before anything runs."""
 
 from __future__ import annotations
 
@@ -23,12 +25,21 @@ import sys
 # flags of the JAX package's CLI that this port does not implement yet:
 # flag → ROADMAP queue-1 item that brings it
 UNPORTED_FLAGS = {
-    "--burst": "6 (execution modes)",
     "--save-state": "7 (checkpoint and sharding)",
     "--resume": "7 (checkpoint and sharding)",
     "--load-graph": "7 (checkpoint and sharding)",
     "--load-grid": "7 (checkpoint and sharding)",
 }
+
+
+def _take_value(argv, flag):
+    """Remove ``flag VALUE`` from ``argv``; (present, value or None)."""
+    if flag not in argv:
+        return False, None
+    i = argv.index(flag)
+    value = argv[i + 1] if i + 1 < len(argv) else None
+    del argv[i : i + 2]
+    return True, value
 
 
 def main(argv=None):
@@ -39,20 +50,26 @@ def main(argv=None):
             print(f"{flag} is not ported to ground_fusion_tpu_torch yet "
                   f"(ROADMAP.md, queue 1, item {UNPORTED_FLAGS[flag]})", file=sys.stderr)
             return 2
-    device = None
-    if "--device" in argv:
-        i = argv.index("--device")
-        if i + 1 >= len(argv):
+    kw = {}
+    given, device = _take_value(argv, "--device")
+    if given:
+        if device is None:
             print(__doc__)
             return 2
-        device = argv[i + 1]
-        del argv[i : i + 2]
+        kw["device"] = device
+    given, burst = _take_value(argv, "--burst")
+    if given:
+        try:
+            kw["burst"] = int(burst)
+        except (TypeError, ValueError):
+            print(__doc__)
+            return 2
     if len(argv) < 2:
         print(__doc__)
         return 2
     cfg_path, seq_dir = argv[0], argv[1]
     out_dir = argv[2] if len(argv) > 2 else "output"
-    run(cfg_path, seq_dir, out_dir, device=device)
+    run(cfg_path, seq_dir, out_dir, **kw)
     return 0
 
 
@@ -73,9 +90,12 @@ def gnss_row_obs(r) -> dict:
     return o
 
 
-def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None):
+def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None, burst: int = 0):
     """The CLI replay loop; returns the finished :class:`GroundFusionSystem`
-    (tests and the smoke script assert on its internals afterwards)."""
+    (tests and the smoke script assert on its internals afterwards).
+    ``burst`` K > 0 replaces the config's ``burst_chunk``."""
+    import dataclasses
+
     import numpy as np
 
     from .config import load_yaml
@@ -84,6 +104,8 @@ def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None):
     from .utils.evaluate import ate_rmse
 
     cfg = load_yaml(cfg_path)
+    if burst:
+        cfg = dataclasses.replace(cfg, burst_chunk=burst)
     seq = Sequence.load(seq_dir)
     sys_ = GroundFusionSystem(cfg, out_dir, device=device)
     if seq.iono is not None and sys_.estimator.gnss is not None:

@@ -83,8 +83,8 @@ def rows_to_dense(J_block: Tensor, col_idx: Tensor, r: Tensor,
     # payloads (e.g. padded observations) and 0·NaN would poison the system
     Jm = torch.where(row_valid[:, None, None], J_block, torch.zeros_like(J_block))
     rm = torch.where(row_valid[:, None], r, torch.zeros_like(r))
-    Jd = torch.zeros((b, rr, total), dtype=J_block.dtype, device=J_block.device)
-    Jd.scatter_(2, col_idx[:, None, :].expand(b, rr, n), Jm)
+    Jd = torch.zeros((b, rr, total), dtype=J_block.dtype, device=J_block.device).scatter(
+        2, col_idx[:, None, :].expand(b, rr, n), Jm)
     return Jd.reshape(b * rr, total), rm.reshape(-1)
 
 
@@ -97,8 +97,8 @@ def rows_to_dense_add(J_block: Tensor, col_idx: Tensor, r: Tensor,
     b, rr, n = J_block.shape
     Jm = torch.where(row_valid[:, None, None], J_block, torch.zeros_like(J_block))
     rm = torch.where(row_valid[:, None], r, torch.zeros_like(r))
-    Jd = torch.zeros((b, rr, total), dtype=J_block.dtype, device=J_block.device)
-    Jd.scatter_add_(2, col_idx[:, None, :].expand(b, rr, n), Jm)
+    Jd = torch.zeros((b, rr, total), dtype=J_block.dtype, device=J_block.device).scatter_add(
+        2, col_idx[:, None, :].expand(b, rr, n), Jm)
     return Jd.reshape(b * rr, total), rm.reshape(-1)
 
 
@@ -233,8 +233,8 @@ def linearize_visual(state: WindowState, tracks: Tracks, td_obs: Tensor,
     )  # [B, 20]
     J = torch.cat([J[:, :, 0:18], J[:, :, 18:19] * dep_free[:, None, None], J[:, :, 19:20]],
                   dim=-1)
-    Jd = torch.zeros((b, 2, layout.total), dtype=dtype, device=dev)
-    Jd.scatter_add_(2, col_idx[:, None, :].expand(b, 2, 20), J)
+    Jd = torch.zeros((b, 2, layout.total), dtype=dtype, device=dev).scatter_add(
+        2, col_idx[:, None, :].expand(b, 2, 20), J)
     return Jd.reshape(b * 2, layout.total), r.reshape(-1)
 
 

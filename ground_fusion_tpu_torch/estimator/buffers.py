@@ -3,14 +3,15 @@
 The reference stores an ``IntegrationBase`` object per window slot and mutates
 it sample-by-sample (``estimator.cpp:743-842`` processIMU/processWheel). Here
 the raw samples live in fixed-capacity ``[F, K]`` tensors (slot k = interval
-(k-1, k]); every solve re-preintegrates all intervals together (a loop over
-the K samples, batched over the F intervals) at the current linearization
-biases — repropagation (``integration_base.h:47-61``) is free because
-preintegration is pure.
+(k-1, k]); every solve re-preintegrates all intervals together, batched over
+the F intervals, at the current linearization biases — repropagation
+(``integration_base.h:47-61``) is free because preintegration is pure.
 
-Only the sequential midpoint form is ported; the log-depth associative-scan
-form of the JAX package (``preintegration/parallel.py``) agrees with it to
-float rounding and is not ported yet.
+By default the window is preintegrated in the log-depth form
+(:mod:`..preintegration.parallel`: a scan of ⌈log₂K⌉ rounds over the
+samples), as the JAX package's window step does; ``parallel=False`` runs the
+sequential loop over the K samples, which agrees with it to float rounding
+and is the plain form the tests hold it against.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from torch import Tensor
 
 from ..preintegration.imu import ImuPreint, preintegrate
+from ..preintegration.parallel import preintegrate_parallel, preintegrate_wheel_parallel
 from ..preintegration.wheel import WheelPreint, preintegrate_wheel
 
 
@@ -73,21 +75,24 @@ def empty_wheel_buffer(num_frames: int, cap: int, dtype=torch.float32,
     )
 
 
-def preintegrate_imu_window(buf: ImuWindowBuffer, sbs: Tensor, noise18) -> ImuPreint:
+def preintegrate_imu_window(buf: ImuWindowBuffer, sbs: Tensor, noise18,
+                            parallel: bool = True) -> ImuPreint:
     """Preintegrate every interval; slot k linearizes at the biases of frame
     k-1 (the interval's start), like ``IntegrationBase(acc_0, gyr_0, Bas[k-1],
-    Bgs[k-1])``. Returns an ImuPreint with leading axis F."""
+    Bgs[k-1])``. Returns an ImuPreint with leading axis F. ``parallel``
+    picks the log-depth form (default) or the sequential loop."""
     sb_prev = torch.roll(sbs, 1, dims=0)
     ba, bg = sb_prev[:, 3:6], sb_prev[:, 6:9]
-    return preintegrate(buf.dts, buf.acc, buf.gyr, buf.valid, buf.acc0, buf.gyr0,
-                        ba, bg, noise18)
+    fn = preintegrate_parallel if parallel else preintegrate
+    return fn(buf.dts, buf.acc, buf.gyr, buf.valid, buf.acc0, buf.gyr0, ba, bg, noise18)
 
 
 def preintegrate_wheel_window(buf: WheelWindowBuffer, s_wheel: Tensor,
-                              td_wheel: Tensor, noise12) -> WheelPreint:
+                              td_wheel: Tensor, noise12, parallel: bool = True) -> WheelPreint:
     sx, sy, sw = s_wheel[0], s_wheel[1], s_wheel[2]
-    return preintegrate_wheel(buf.dts, buf.vel, buf.gyr, buf.valid, buf.vel0,
-                              buf.gyr0, sx, sy, sw, td_wheel, noise12)
+    fn = preintegrate_wheel_parallel if parallel else preintegrate_wheel
+    return fn(buf.dts, buf.vel, buf.gyr, buf.valid, buf.vel0, buf.gyr0,
+              sx, sy, sw, td_wheel, noise12)
 
 
 def _roll_clear(a: Tensor) -> Tensor:

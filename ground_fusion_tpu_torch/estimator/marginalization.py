@@ -58,11 +58,12 @@ def _sqrt_factorize(H: Tensor, b: Tensor, eps: float = 1e-8):
     ANY square root is equivalent. The fast path is a Cholesky of the
     ridge-stabilised system (J0 = Lᵀ, r0 = L⁻¹b); the reference's
     clipped-eigendecomposition factorization is the fallback taken only when
-    rounding leaves H indefinite enough that the Cholesky fails. The choice
-    needs the factorization's status on the host: one scalar read per
-    marginalization, right before the step's results are fetched anyway."""
-    H = 0.5 * (H + H.T)
-    n = H.shape[0]
+    rounding leaves H indefinite enough that the Cholesky fails. Both are
+    computed and the status selects one on the device (the JAX package's
+    ``lax.cond``): no host read, so a burst of steps and the fleet's
+    ``vmap`` run it as they run the rest of the step."""
+    H = 0.5 * (H + H.mT)
+    n = H.shape[-1]
     dtype = H.dtype
     # relative ridge: covers rank-deficiency + f32 rounding of the Schur
     # down-dates; ~1e-5 of the diagonal scale adds negligible information
@@ -70,16 +71,16 @@ def _sqrt_factorize(H: Tensor, b: Tensor, eps: float = 1e-8):
     scale = torch.clamp(torch.max(torch.abs(torch.diagonal(H))), min=1.0)
     delta = (64.0 * torch.finfo(dtype).eps) * scale + eps
     L, info = torch.linalg.cholesky_ex(H + delta * torch.eye(n, dtype=dtype, device=H.device))
-    if bool((info == 0) & torch.all(torch.isfinite(L))):
-        r0 = torch.linalg.solve_triangular(L, b[:, None], upper=False)[:, 0]
-        return L.T, r0
+    chol_ok = (info == 0) & torch.all(torch.isfinite(L))
+    L = torch.where(chol_ok, L, torch.eye(n, dtype=dtype, device=H.device))
+    r_chol = torch.linalg.solve_triangular(L, b[:, None], upper=False)[:, 0]
 
     s, V = torch.linalg.eigh(H)
     ok = s > eps
     sqrt_s = torch.sqrt(torch.where(ok, s, torch.ones_like(s)))
-    J0 = torch.where(ok[:, None], sqrt_s[:, None] * V.T, torch.zeros_like(V))
-    r0 = torch.where(ok, (V.T @ b) / sqrt_s, torch.zeros_like(s))
-    return J0, r0
+    J_eig = torch.where(ok[:, None], sqrt_s[:, None] * V.T, torch.zeros_like(V))
+    r_eig = torch.where(ok, (V.T @ b) / sqrt_s, torch.zeros_like(s))
+    return torch.where(chol_ok, L.T, J_eig), torch.where(chol_ok, r_chol, r_eig)
 
 
 def _schur_drop(H: Tensor, b: Tensor, drop: np.ndarray, keep: np.ndarray,
@@ -99,8 +100,9 @@ def _embed_prior(J_keep: Tensor, r_keep: Tensor, new_col: np.ndarray, nx: int):
     columns. Additive: colliding columns (second-new map) sum."""
     nk = J_keep.shape[0]
     idx = torch.as_tensor(new_col, dtype=torch.int64, device=J_keep.device)
-    J0 = torch.zeros((nx, nx), dtype=J_keep.dtype, device=J_keep.device)
-    J0[:nk].index_add_(1, idx, J_keep)
+    kw = dict(dtype=J_keep.dtype, device=J_keep.device)
+    J0 = torch.cat([torch.zeros((nk, nx), **kw).index_add(1, idx, J_keep),
+                    torch.zeros((nx - nk, nx), **kw)])
     r0 = torch.cat([r_keep, torch.zeros(nx - nk, dtype=r_keep.dtype, device=r_keep.device)])
     return J0, r0
 

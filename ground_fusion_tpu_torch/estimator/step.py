@@ -9,9 +9,16 @@ other gate stays a device tensor.
 
 With ``use_line`` the step carries the line landmarks (:mod:`.lines`):
 triangulation, the line-only refinement and the cull before the solve, the
-line rows in it, the cull after it and both line slides. Only the per-frame
-step is ported; the packed, burst, ingest and fleet step constructors of the
-JAX package are not.
+line rows in it, the cull after it and both line slides.
+
+Beside the per-frame step, the execution modes of the JAX package are built
+from the same step body: the packed codec and packed step, a burst of K
+steps enqueued back to back (:func:`make_window_burst`), the burst with the
+frames' ingest done on the device (:func:`make_window_burst_ingest`, which
+``pipeline.Estimator.enable_burst`` and ``enable_live`` run) and the fleet of
+B sequences in lockstep (:func:`make_window_burst_batched`, the step under
+``torch.func.vmap``). None of them reads the device between steps: the
+keyframe decisions come from the host with the inputs.
 """
 
 from __future__ import annotations
@@ -121,7 +128,6 @@ def check_supported(cfg: Config) -> None:
     """Raise for configuration switches whose modules are not ported yet."""
     pending = [
         (cfg.use_yolo, "use_yolo", "detector, calibration, other camera models"),
-        (bool(cfg.burst_chunk), "burst_chunk", "execution modes (burst, live, fleet)"),
     ]
     for on, name, item in pending:
         if on:
@@ -151,6 +157,302 @@ def make_window_step(cfg: Config, device=None):
     device = resolve_device(device)
     step, layout = _build_step(cfg, device)
     return step, layout
+
+
+# ---------------------------------------------------------------------------
+# Pytrees of tensors: cores, flags and outputs as flat tensor lists
+# ---------------------------------------------------------------------------
+
+
+def _flatten(x, out: list):
+    """Append the tensors of ``x`` (tensors, NamedTuples, dicts, with ``None``
+    and host values kept in the spec) to ``out``; return the spec."""
+    if isinstance(x, Tensor):
+        out.append(x)
+        return ("t",)
+    if isinstance(x, dict):
+        return ("d", [(k, _flatten(v, out)) for k, v in x.items()])
+    if hasattr(x, "_fields"):
+        return ("n", type(x), [_flatten(v, out) for v in x])
+    if isinstance(x, (tuple, list)):
+        return ("n", lambda *v: tuple(v), [_flatten(v, out) for v in x])
+    return ("c", x)
+
+
+def _unflatten(spec, it):
+    kind = spec[0]
+    if kind == "t":
+        return next(it)
+    if kind == "d":
+        return {k: _unflatten(v, it) for k, v in spec[1]}
+    if kind == "n":
+        return spec[1](*[_unflatten(v, it) for v in spec[2]])
+    return spec[1]
+
+
+def tensor_leaves(x) -> list:
+    """The tensors of a core, flags or outputs, in a fixed order."""
+    out = []
+    _flatten(x, out)
+    return out
+
+
+def _map_tensors(fn, x):
+    leaves = []
+    spec = _flatten(x, leaves)
+    return _unflatten(spec, iter([fn(t) for t in leaves]))
+
+
+def _stack_outputs(outs: list) -> dict:
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def make_packed_codec(template):
+    """(pack, unpack) between a core and THREE flat blobs (one per dtype
+    family: bool, float, integer). The JAX package uses it to cut per-leaf
+    dispatch cost; here it gives a core one flat buffer per family, so that
+    it crosses a boundary (a copy, a fetch) in three transfers. The packed
+    step is bit-identical to the step. Every family must hold one dtype: a
+    narrower blob would round wider leaves, so mixing is refused."""
+    leaves = []
+    spec = _flatten(template, leaves)
+    fam_of = {}
+    for i, leaf in enumerate(leaves):
+        fam = ("f" if leaf.is_floating_point() else "b" if leaf.dtype == torch.bool else "i")
+        fam_of.setdefault(fam, []).append(i)
+    fams = sorted(fam_of)                       # deterministic blob order
+    for fam in fams:
+        mixed = {str(leaves[i].dtype) for i in fam_of[fam]}
+        if len(mixed) > 1:
+            raise TypeError(
+                f"make_packed_codec: dtype family {fam!r} mixes {sorted(mixed)}; "
+                "packing would round-trip through one of them")
+    fam_dtype = {fam: leaves[fam_of[fam][0]].dtype for fam in fams}
+    shapes = [leaf.shape for leaf in leaves]
+    sizes = [leaf.numel() for leaf in leaves]
+
+    def pack(core):
+        ls = tensor_leaves(core)
+        return tuple(torch.cat([ls[i].reshape(-1) for i in fam_of[fam]]) for fam in fams)
+
+    def unpack(blobs):
+        out = [None] * len(leaves)
+        for fam, blob in zip(fams, blobs):
+            parts = torch.split(blob, [sizes[i] for i in fam_of[fam]])
+            for i, part in zip(fam_of[fam], parts):
+                out[i] = part.reshape(shapes[i]).to(fam_dtype[fam])
+        return _unflatten(spec, iter(out))
+
+    return pack, unpack
+
+
+def make_window_step_packed(cfg: Config, template_core: EstimatorCore, device=None):
+    """The window step over packed blobs (:func:`make_packed_codec`):
+    ``packed_step(blobs, flags) -> (blobs, out)``. Returns (packed step,
+    pack, unpack, layout)."""
+    step, layout = make_window_step(cfg, device)
+    pack, unpack = make_packed_codec(template_core)
+
+    def packed_step(blobs, flags: StepFlags):
+        core, out = step(unpack(blobs), flags)
+        return pack(core), out
+
+    return packed_step, pack, unpack, layout
+
+
+def make_window_burst(cfg: Config, device=None):
+    """Burst/replay mode: a chunk of K window steps enqueued back to back —
+    ``burst(core, flags_batch)``, where every tensor of ``flags_batch`` has a
+    leading chunk axis K and ``marg_old`` is a host bool array [K] (the
+    keyframe decisions, known on the host for every staged frame). No device
+    read happens between the steps; the outputs are stacked on the device
+    (``[K, ...]``). The JAX package scans the step in one program
+    (``lax.scan``); here each step is eager, so a burst is the per-frame step
+    K times without the per-frame fetches."""
+    step, layout = make_window_step(cfg, device)
+
+    def burst(core: EstimatorCore, flags_batch: StepFlags):
+        margs = np.asarray(flags_batch.marg_old, bool)
+        outs = []
+        for k in range(len(margs)):
+            fl = _map_tensors(lambda t: t[k], flags_batch._replace(marg_old=None))
+            core, out = step(core, fl._replace(marg_old=bool(margs[k])))
+            outs.append(out)
+        return core, _stack_outputs(outs)
+
+    return burst, layout
+
+
+def make_window_burst_batched(cfg: Config, device=None):
+    """Fleet replay: B independent estimator cores advanced in lockstep —
+    ``burst(cores, flags_batch)``, every tensor of ``cores`` with a leading
+    axis B (``utils.convert.stack_cores``), every tensor of ``flags_batch``
+    with leading axes [K, B], ``marg_old`` a host bool array [K, B]. Returns
+    the final batched cores and the outputs stacked [K, B, ...].
+
+    Each of the K steps runs the window step under ``torch.func.vmap``: the
+    batch is split by its host-known keyframe decisions, the vmapped step
+    runs once with ``marg_old=True`` on one part and once with
+    ``marg_old=False`` on the other, and the two parts' cores and outputs
+    are merged tensor by tensor with ``index_copy`` (both branches give
+    cores of the same shapes). Nothing is computed for a branch a sequence
+    does not take, and there is no loop over the sequences."""
+    step, layout = make_window_step(cfg, device)
+
+    def vstep(cores, flags, marg_old: bool):
+        leaves = []
+        spec = _flatten((cores, flags), leaves)
+        out_spec = []
+
+        def body(*ts):
+            c, fl = _unflatten(spec, iter(ts))
+            res = step(c, fl._replace(marg_old=marg_old))
+            got = []
+            out_spec.append(_flatten(res, got))
+            return tuple(got)
+
+        got = torch.func.vmap(body)(*leaves)
+        return _unflatten(out_spec[0], iter(got))
+
+    def burst(cores: EstimatorCore, flags_batch: StepFlags):
+        margs = np.asarray(flags_batch.marg_old, bool)
+        n_b = margs.shape[1]
+        dev = cores.state.poses.device
+        outs = []
+        for k in range(margs.shape[0]):
+            fl = _map_tensors(lambda t: t[k], flags_batch._replace(marg_old=None))
+            parts = []
+            for branch in (True, False):
+                sel = np.nonzero(margs[k] == branch)[0]
+                if len(sel) == n_b:          # the whole batch takes this branch
+                    parts = [(None, vstep(cores, fl, branch))]
+                    break
+                if len(sel):
+                    idx = torch.as_tensor(sel, device=dev)
+                    sub = lambda t: t.index_select(0, idx)
+                    parts.append((idx, vstep(_map_tensors(sub, cores), _map_tensors(sub, fl),
+                                             branch)))
+            if len(parts) == 1:
+                cores, out = parts[0][1]
+            else:
+                (ia, ra), (ib, rb) = parts
+                ta, tb = [], []
+                spec = _flatten(ra, ta)
+                _flatten(rb, tb)
+                merged = [torch.zeros((n_b,) + a.shape[1:], dtype=a.dtype, device=dev)
+                          .index_copy(0, ia, a).index_copy(0, ib, b) for a, b in zip(ta, tb)]
+                cores, out = _unflatten(spec, iter(merged))
+            outs.append(out)
+        return cores, _stack_outputs(outs)
+
+    return burst, layout
+
+
+def make_window_burst_ingest(cfg: Config, device=None):
+    """Burst replay WITH on-device measurement ingest: each of the K steps
+    first writes frame k's sensor interval and feature observations into the
+    core, then runs the window step — ingest → solve → marginalize → slide,
+    K times, with no device read in between. ``burst(core, xs)``:
+
+    - ``i_*`` / ``w_*`` — padded IMU/wheel interval tensors for buffer slot
+      F-1, each with a leading axis K
+    - ``rows [K, ML]`` — a PERMUTATION of landmark-slot indices: the first
+      entries are the slots written this frame, the rest are the unwritten
+      slots. A permutation makes every write collision-free: the per-entry
+      masks are moved to their slots with one ``index_copy`` each, and the
+      table is then updated elementwise.
+    - ``vals [K, ML, 5]`` — observation rows for ``rows``; ``wmask`` — which
+      entries are real writes; ``nmask`` — which writes open a NEW slot
+      (scrub stale columns, reset depth/flags, re-anchor at F-1)
+    - ``marg_old`` — the keyframe decisions, a host bool array [K]
+    - when ``cfg.use_line``: ``l_rows/l_vals/l_wmask/l_nmask`` — the same
+      permutation-write scheme for the line-landmark table
+    - with GNSS: ``gnss_ready [K]`` and ``frame_dts [K, F]``
+
+    Returns the new core, the outputs stacked ``[K, ...]`` and the post-chunk
+    mirror tables (landmark ``obs_valid``, ``active``, ``obs[..., 0:2]``;
+    with lines the line ``obs_valid`` and ``active``) for the host's one
+    fetch. Used by ``pipeline.Estimator.enable_burst``."""
+    step, layout = make_window_step(cfg, device)
+    f = cfg.num_frames
+
+    def put_slot(buf, fields, xs, prefix):
+        """Write slot F-1 of each field from ``xs[prefix + name]``."""
+        upd = {}
+        for name in fields:
+            a = getattr(buf, name)
+            upd[name] = torch.cat([a[: f - 1], xs[prefix + name].to(a.dtype)[None]])
+        return buf._replace(**upd)
+
+    def scatter_table(table, rows, vals, wmask, nmask, onehot):
+        """The writes common to the landmark and line tables, one slot per
+        entry of the permutation ``rows``; returns the per-slot masks too."""
+        w_slot = torch.zeros_like(wmask).index_copy(0, rows, wmask)
+        n_slot = torch.zeros_like(nmask).index_copy(0, rows, nmask)
+        v_slot = torch.zeros(vals.shape, dtype=table.obs.dtype, device=vals.device).index_copy(
+            0, rows, vals.to(table.obs.dtype))
+        ov = torch.where(n_slot[:, None], onehot[None, :], table.obs_valid)
+        ov = torch.cat([ov[:, : f - 1], (w_slot | ov[:, f - 1])[:, None]], dim=1)
+        obs_new = torch.where(w_slot[:, None], v_slot, table.obs[:, f - 1])
+        obs = torch.cat([table.obs[:, : f - 1], obs_new[:, None]], dim=1)
+        return table._replace(obs=obs, obs_valid=ov, active=n_slot | table.active,
+                              solve_ok=~n_slot & table.solve_ok,
+                              start_frame=torch.where(n_slot, f - 1, table.start_frame)), n_slot
+
+    def body(core: EstimatorCore, xs: dict, marg_old: bool, fixed: dict):
+        dtype = core.state.poses.dtype
+        ib = put_slot(core.imu_buf, ("dts", "acc", "gyr", "valid", "acc0", "gyr0"), xs, "i_")
+        wb = put_slot(core.wheel_buf, ("dts", "vel", "gyr", "valid", "vel0", "gyr0"), xs, "w_")
+        tr, n_slot = scatter_table(core.tracks, xs["rows"], xs["vals"], xs["wmask"],
+                                   xs["nmask"], fixed["onehot"])
+        tr = tr._replace(
+            depth_fixed=~n_slot & tr.depth_fixed,
+            inv_depth=torch.where(n_slot, torch.tensor(0.2, dtype=dtype, device=n_slot.device),
+                                  tr.inv_depth))
+        core = core._replace(imu_buf=ib, wheel_buf=wb, tracks=tr)
+        if cfg.use_line and core.lines is not None:
+            ln, ln_slot = scatter_table(core.lines, xs["l_rows"], xs["l_vals"], xs["l_wmask"],
+                                        xs["l_nmask"], fixed["onehot"])
+            ln = ln._replace(orth=torch.where(ln_slot[:, None], 0.0, ln.orth))
+            core = core._replace(lines=ln)
+
+        gnss_kw = {}
+        if cfg.gnss.enabled:
+            # low-speed yaw freeze from the CURRENT state speed (the host
+            # flag of the per-frame path is the same quantity, fetched)
+            speed = torch.linalg.norm(core.state.sbs[f - 1, 0:3])
+            gnss_kw = dict(gnss_ready=xs["gnss_ready"], frame_dts=xs["frame_dts"].to(dtype),
+                           fix_yaw_enu=speed < cfg.gnss.low_speed_yaw_fix,
+                           first_gnss_opt=fixed["false"])
+        flags = StepFlags(marg_old=marg_old, stationary=fixed["false"],
+                          wheel_valid=fixed["interval"], imu_valid=fixed["interval"],
+                          td_obs=fixed["td_obs"].to(dtype), propagate_newest=fixed["true"],
+                          **gnss_kw)
+        return step(core, flags)
+
+    def burst(core: EstimatorCore, xs: dict):
+        margs = np.asarray(xs["marg_old"], bool)
+        dev = core.state.poses.device
+        fixed = dict(
+            onehot=torch.arange(f, device=dev) == f - 1,
+            interval=torch.arange(f, device=dev) >= 1,
+            false=torch.zeros((), dtype=torch.bool, device=dev),
+            true=torch.ones((), dtype=torch.bool, device=dev),
+            td_obs=torch.zeros(f, dtype=core.state.poses.dtype, device=dev),
+        )
+        outs = []
+        for k in range(len(margs)):
+            xk = {name: v[k] for name, v in xs.items() if name != "marg_old"}
+            core, out = body(core, xk, bool(margs[k]), fixed)
+            outs.append(out)
+        # the post-chunk mirror tables ride out with the same fetch as the
+        # outputs, so the host reconciles its mirrors without another trip
+        mirrors = [core.tracks.obs_valid, core.tracks.active, core.tracks.obs[..., 0:2]]
+        if cfg.use_line and core.lines is not None:
+            mirrors += [core.lines.obs_valid, core.lines.active]
+        return core, _stack_outputs(outs), tuple(mirrors)
+
+    return burst, layout
 
 
 def _build_step(cfg: Config, device):

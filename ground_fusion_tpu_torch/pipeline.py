@@ -15,8 +15,14 @@ one GNSS epoch slot and one packed flag upload).
 GNSS epochs are gated and reduced on the host in float64
 (:mod:`.gnss.ingest`); only the reduced, small quantities reach the device.
 
-Only the per-frame path is ported: the burst, live and fleet modes and
-checkpointing of the JAX package are not, and the sensor queues are
+Burst mode (:meth:`Estimator.enable_burst`, and live mode, a burst of one)
+stages frames against NumPy mirrors of the landmark and line tables: a
+staged frame makes no device read. A flush uploads the chunk's inputs (one
+copy per dtype family), runs K ingest-and-step iterations on the device
+(``estimator.step.make_window_burst_ingest``) and makes one packed fetch of
+the poses, speed/bias vectors, failure flags and post-chunk mirror tables.
+
+Checkpointing of the JAX package is not ported, and the sensor queues are
 plain Python lists (the C++ ring-buffer ingest is not ported yet).
 """
 
@@ -123,6 +129,12 @@ class Estimator:
         self._last_sb: Optional[np.ndarray] = None
         self._last_out_failed: Optional[bool] = None
         self.reboots = 0
+        # burst replay (enable_burst): 0 = per-frame dispatch
+        self._burst_chunk = 0
+        self._burst_xs: list[dict] = []
+        self._burst_meta: list[tuple[float, bool]] = []
+        self._burst_flushed_sizes: list[int] = []
+        self._mirror_synced = False
 
     def _kw(self):
         return dict(dtype=self.dtype, device=self.device)
@@ -291,19 +303,10 @@ class Estimator:
         """ONE device→host fetch of what the host needs from the landmark
         and line tables this frame: (obs_valid [ML,F], active [ML], obs_xy
         [ML,F,2], line active [LL] or None)."""
-        tr = self.core.tracks
-        ml, f = tr.obs_valid.shape
-        dt = tr.obs.dtype
-        parts = [tr.obs_valid.to(dt), tr.active.to(dt)[:, None], tr.obs[..., 0:2].reshape(ml, 2 * f)]
-        packed = torch.cat(parts, dim=1).reshape(-1)
-        ln = self.core.lines
-        if ln is not None:
-            packed = torch.cat([packed, ln.active.to(dt)])
-        flat = packed.cpu().numpy()
-        table = flat[: ml * (3 * f + 1)].reshape(ml, 3 * f + 1)
-        line_active = flat[table.size :] > 0.5 if ln is not None else None
-        return (table[:, :f] > 0.5, table[:, f] > 0.5, table[:, f + 1 :].reshape(ml, f, 2),
-                line_active)
+        tr, ln = self.core.tracks, self.core.lines
+        got = self._fetch([tr.obs_valid, tr.active, tr.obs[..., 0:2]]
+                          + ([ln.active] if ln is not None else []))
+        return (*got[0:3], got[3] if ln is not None else None)
 
     def _assign_slots(self, feats: dict[int, FrameFeature], slot_frame: int,
                       active_np: np.ndarray):
@@ -444,7 +447,22 @@ class Estimator:
         maps line id → normalized-plane endpoints [x1, y1, x2, y2] (the
         ``trackImagewithline`` payload, estimator.cpp:275-322; ignored
         unless ``use_line``). Returns the newest optimized pose [7] once the
-        estimator is running."""
+        estimator is running (in burst mode: when a flush ran, else None)."""
+        if self._burst_chunk and self.solver_flag == self.NON_LINEAR:
+            if not self._gnss_interactive():
+                # staged: the keyframe gate and the slot allocation read the
+                # host mirrors; no device read on this frame
+                if not self._burst_xs and not self._mirror_synced:
+                    self._sync_mirror()
+                is_keyframe = self._keyframe_decision(
+                    feats, self._mirror_obs_valid, self._mirror_active, self._mirror_obs_xy)
+                self._prev_feats = feats
+                return self._stage_burst_frame(t, feats, is_keyframe, line_obs)
+            # host-interactive GNSS work this frame (epoch attachment / VI
+            # alignment): flush the staged chunk and take the per-frame path;
+            # staging resumes with the next frame
+            self.flush_burst()
+            self._mirror_synced = False
         ov, active, obs_xy, line_active = self._fetch_track_masks()
         is_keyframe = self._keyframe_decision(feats, ov, active, obs_xy)
         self._prev_feats = feats
@@ -453,6 +471,258 @@ class Estimator:
         if self.solver_flag == self.INITIAL:
             return self._fill_or_init(t, feats, active, lines)
         return self._nonlinear_frame(t, feats, is_keyframe, active, lines)
+
+    def _gnss_interactive(self) -> bool:
+        """True when this frame has GNSS work for the host: an epoch to
+        attach or a VI alignment still to try."""
+        return self.gnss is not None and (self._pending_gnss is not None
+                                          or not self.gnss_aligned)
+
+    # --------------------------------------------------------- burst replay
+
+    def enable_burst(self, chunk: int = 16) -> None:
+        """Replay mode: once NON_LINEAR, stage ``chunk`` frames and solve them
+        in one flush (``make_window_burst_ingest``: the ingest and the window
+        step K times on the device, with no read in between), one upload of
+        the inputs and one packed fetch of the results.
+
+        Host slot allocation (points and line landmarks) runs against NumPy
+        mirrors of the padded tables (no per-frame device read); the mirrors
+        are optimistic — device-side deactivations (depth-shift failures,
+        MCC/line outliers) are reconciled at every flush, so a dead slot's
+        recycling can lag by at most one chunk. With tight GNSS the chunk
+        flushes whenever host-interactive work is pending (epoch attachment,
+        VI alignment) and that frame runs per frame. Failure detection runs
+        per frame inside the chunk (the step's failure flag, stacked): a
+        failure mid-chunk truncates the chunk's outputs at the failing frame
+        and reboots. Call :meth:`flush_burst` before reading ``core`` or
+        ``trajectory``; ``GroundFusionSystem.finish`` does."""
+        from .estimator.step import make_window_burst_ingest
+
+        self._burst_chunk = int(chunk)
+        self._burst_fn, _ = make_window_burst_ingest(self.cfg, self.device)
+        self._burst_xs = []
+        self._burst_meta = []
+        self._burst_flushed_sizes = []
+        self._mirror_synced = False
+
+    def enable_live(self) -> None:
+        """Live/latency mode: each frame is one ingest-and-step on the device
+        (the burst with a chunk of 1) and one packed fetch (odometry, failure
+        flag and the post-step mirror tables). The keyframe gate, the slot
+        allocation, prediction seeding and the speed gate are served from the
+        host mirrors, so no other device read exists on the frame path."""
+        self.enable_burst(1)
+
+    def _mirror_tensors(self, core) -> list:
+        tr = core.tracks
+        out = [tr.obs_valid, tr.active, tr.obs[..., 0:2]]
+        if self.cfg.use_line and core.lines is not None:
+            out += [core.lines.obs_valid, core.lines.active]
+        return out
+
+    def _fetch(self, parts: list) -> list:
+        """ONE device→host copy of several tensors (packed in the state's
+        dtype, which holds the masks and the observations exactly), split
+        back into numpy arrays of their shapes; boolean tensors come back
+        boolean."""
+        flat = torch.cat([p.reshape(-1).to(self.dtype) for p in parts]).cpu().numpy()
+        out, off = [], 0
+        for p in parts:
+            a = flat[off : off + p.numel()].reshape(tuple(p.shape))
+            off += p.numel()
+            out.append(a > 0.5 if p.dtype == torch.bool else a.astype(np.float64))
+        return out
+
+    def _set_mirrors(self, arrays: list) -> None:
+        self._mirror_obs_valid, self._mirror_active, self._mirror_obs_xy = arrays[0:3]
+        if self.cfg.use_line and self.core.lines is not None:
+            self._mirror_line_obs_valid, self._mirror_line_active = arrays[3:5]
+        self._mirror_synced = True
+
+    def _sync_mirror(self) -> None:
+        """Refresh the host mirrors from the device tables (one fetch)."""
+        self._set_mirrors(self._fetch(self._mirror_tensors(self.core)))
+
+    def _assign_slots_mirror(self, feats: dict[int, FrameFeature]):
+        """Mirror-side twin of :meth:`_assign_slots`: allocate/recycle slots
+        against the NumPy mirror and return the padded write-set for the
+        on-device ingest. ``rows`` is a permutation of all slot indices
+        (written slots first) so every device write is collision-free."""
+        ml = self.cfg.solver.max_landmarks
+        sf = self.f - 1
+        for fid, slot in list(self.slot_of.items()):
+            if not self._mirror_active[slot]:
+                del self.slot_of[fid]
+                self.free_slots.append(slot)
+
+        written, vals, news = [], [], []
+        for fid, ft in feats.items():
+            slot = self.slot_of.get(fid)
+            if slot is None:
+                if not self.free_slots:
+                    continue
+                slot = self.free_slots.pop()
+                self.slot_of[fid] = slot
+                news.append(True)
+                self._mirror_active[slot] = True
+                self._mirror_obs_valid[slot, :] = False
+            else:
+                news.append(False)
+            written.append(slot)
+            vals.append([ft.x, ft.y, ft.vx, ft.vy, ft.depth])
+            self._mirror_obs_valid[slot, sf] = True
+            self._mirror_obs_xy[slot, sf] = (ft.x, ft.y)
+        return self._permutation_writes(ml, written, vals, news, 5)
+
+    @staticmethod
+    def _permutation_writes(n_slots, written, vals, news, width):
+        n = len(written)
+        rows = np.empty(n_slots, np.int64)
+        rows[:n] = written
+        rows[n:] = sorted(set(range(n_slots)) - set(written))
+        v = np.zeros((n_slots, width), np.float64)
+        if n:
+            v[:n] = np.asarray(vals, np.float64)
+        wmask = np.zeros(n_slots, bool)
+        wmask[:n] = True
+        nmask = np.zeros(n_slots, bool)
+        nmask[:n] = news
+        return rows, v, wmask, nmask
+
+    def _assign_line_slots_mirror(self, lobs: Optional[dict]):
+        """Line twin of :meth:`_assign_slots_mirror` (same permutation-write
+        scheme against the line-table mirror)."""
+        sf = self.f - 1
+        for lid, slot in list(self.line_slot_of.items()):
+            if not self._mirror_line_active[slot]:
+                del self.line_slot_of[lid]
+                self.free_line_slots.append(slot)
+
+        written, vals, news = [], [], []
+        for lid, ob in (lobs or {}).items():
+            slot = self.line_slot_of.get(lid)
+            if slot is None:
+                if not self.free_line_slots:
+                    continue
+                slot = self.free_line_slots.pop()
+                self.line_slot_of[lid] = slot
+                news.append(True)
+                self._mirror_line_active[slot] = True
+                self._mirror_line_obs_valid[slot, :] = False
+            else:
+                news.append(False)
+            written.append(slot)
+            vals.append(np.asarray(ob, np.float64)[:4])
+            self._mirror_line_obs_valid[slot, sf] = True
+        return self._permutation_writes(self.cfg.lines.max_lines, written, vals, news, 4)
+
+    def _mirror_valids(self):
+        out = [self._mirror_obs_valid]
+        if self.cfg.use_line:
+            out.append(self._mirror_line_obs_valid)
+        return out
+
+    def _stage_burst_frame(self, t, feats, is_keyframe, line_obs) -> Optional[np.ndarray]:
+        f = self.f
+        iv, wv = self._drain_interval(t)
+        self.ts.append(t)
+        if len(self.ts) > f:
+            self.ts.pop(0)
+        rows, vals, wmask, nmask = self._assign_slots_mirror(feats)
+        fr = dict(
+            i_dts=iv[0], i_acc=iv[1], i_gyr=iv[2], i_valid=iv[3], i_acc0=iv[4], i_gyr0=iv[5],
+            w_dts=wv[0], w_vel=wv[1], w_gyr=wv[2], w_valid=wv[3], w_vel0=wv[4], w_gyr0=wv[5],
+            rows=rows, vals=vals, wmask=wmask, nmask=nmask,
+        )
+        if self.cfg.use_line:
+            lr, lv, lw, ln = self._assign_line_slots_mirror(line_obs)
+            fr.update(l_rows=lr, l_vals=lv, l_wmask=lw, l_nmask=ln)
+        if self.gnss is not None:
+            frame_dts = np.diff(np.asarray(self.ts, np.float64), prepend=self.ts[0])
+            fr.update(gnss_ready=np.asarray(self.gnss_aligned), frame_dts=frame_dts[:f])
+        self._burst_xs.append(fr)
+        self._burst_meta.append((t, bool(is_keyframe)))
+        # slide bookkeeping (mirror + timestamps), as _run_step's tail
+        if not is_keyframe:
+            self.ts = self.ts[: f - 2] + [self.ts[f - 1]]
+            for ov in self._mirror_valids():
+                ov[:, f - 2] = ov[:, f - 1]
+                ov[:, f - 1] = False
+            self._mirror_obs_xy[:, f - 2] = self._mirror_obs_xy[:, f - 1]
+        else:
+            self.ts = self.ts[1:]
+            self._mirror_obs_valid = np.roll(self._mirror_obs_valid, -1, axis=1)
+            self._mirror_obs_valid[:, -1] = False
+            self._mirror_obs_xy = np.roll(self._mirror_obs_xy, -1, axis=1)
+            if self.cfg.use_line:
+                self._mirror_line_obs_valid = np.roll(self._mirror_line_obs_valid, -1, axis=1)
+                self._mirror_line_obs_valid[:, -1] = False
+        self._mirror_active &= self._mirror_obs_valid.any(axis=1)
+        if self.cfg.use_line:
+            self._mirror_line_active &= self._mirror_line_obs_valid.any(axis=1)
+        if len(self._burst_xs) >= self._burst_chunk:
+            return self.flush_burst()
+        return None
+
+    def _upload_staged(self) -> dict:
+        """The staged frames' inputs, stacked on a leading axis K, in ONE
+        host→device copy per dtype family (floats in the state's dtype,
+        masks, slot indices); the keyframe decisions stay on the host."""
+        keys = list(self._burst_xs[0])
+        stacked = {k: np.stack([np.asarray(fr[k]) for fr in self._burst_xs]) for k in keys}
+        fams = {"b": [k for k in keys if stacked[k].dtype == np.bool_],
+                "i": [k for k in keys if k in ("rows", "l_rows")]}
+        fams["f"] = [k for k in keys if k not in fams["b"] and k not in fams["i"]]
+        out = {}
+        for fam, names in fams.items():
+            if not names:
+                continue
+            dtype = {"b": torch.bool, "i": torch.int64, "f": None}[fam]
+            flat = np.concatenate([stacked[k].reshape(-1) for k in names])
+            dev = self._upload(flat, dtype)
+            for k, part in zip(names, torch.split(dev, [stacked[k].size for k in names])):
+                out[k] = part.reshape(stacked[k].shape)
+        out["marg_old"] = np.asarray([kf for _, kf in self._burst_meta], bool)
+        return out
+
+    def flush_burst(self) -> Optional[np.ndarray]:
+        """Run every staged frame on the device (one upload of the inputs, K
+        ingest-and-step iterations), record their per-frame odometry from ONE
+        packed fetch, reconcile the mirrors from the same fetch and run the
+        per-frame failure check. Returns the newest optimized pose."""
+        if not self._burst_xs:
+            return None
+        k_staged = len(self._burst_meta)
+        core_new, outs, mirrors = self._burst_fn(self.core, self._upload_staged())
+        self.core = core_new
+        self._burst_flushed_sizes.append(k_staged)
+        parts = [outs["pose"], outs["sb"], outs["failed"]]
+        if self.gnss is not None:
+            parts.append(core_new.state.anc_ecef)
+        fetched = self._fetch(parts + list(mirrors))
+        poses, sbs, failed = fetched[0:3]
+        # failure detection per frame INSIDE the chunk: on a mid-chunk
+        # explosion keep only the frames solved before it and reboot (the
+        # reference checks every frame, estimator.cpp:1140-1148)
+        k_fail = int(np.argmax(failed)) if failed.any() else k_staged
+        for k, (t, kf) in enumerate(self._burst_meta[:k_fail]):
+            self.trajectory.append((t, poses[k]))
+            self.keyframe_flags.append(kf)
+        self._burst_xs = []
+        self._burst_meta = []
+        self._fp = None
+        if k_fail < k_staged:
+            self.reboot()
+            return None
+        # seed fastPredict and the speed gate from the fetched outputs
+        self._last_sb = sbs[-1]
+        self._fp_seed = (poses[-1], self._last_sb)
+        self._last_out_failed = False
+        if self.gnss is not None:
+            self._anc_delta = fetched[3]
+        self._set_mirrors(fetched[len(parts):])
+        return poses[-1]
 
     def _fill_or_init(self, t, feats, active_np, lines):
         f = self.f
@@ -743,6 +1013,8 @@ class Estimator:
         self._first_gnss_opt = True   # estimator.cpp:152
         self._gnss_pre_epochs = []
         self._anc_delta = np.zeros(3)
+        self._burst_xs, self._burst_meta = [], []
+        self._mirror_synced = False
         self.reboots += 1
 
     # ------------------------------------------------------------------ GNSS
@@ -912,15 +1184,13 @@ class Estimator:
         # ONE packed device→host fetch for everything the host needs from
         # this step (pose, speed/bias vector, failure flag); it also ends the
         # step's device work, so a host clock around this call times the step
-        parts = [out["pose"], out["sb"], out["failed"].to(self.dtype)[None]]
+        parts = [out["pose"], out["sb"], out["failed"]]
         if self.gnss is not None:
             parts.append(core_new.state.anc_ecef)
-        packed = torch.cat(parts).cpu().numpy().astype(np.float64)
-        pose = packed[0:7]
-        self._last_sb = packed[7:16]
-        self._last_out_failed = bool(packed[16] > 0.5)
+        got = self._fetch(parts)
+        pose, self._last_sb, self._last_out_failed = got[0], got[1], bool(got[2])
         if self.gnss is not None:
-            self._anc_delta = packed[17:20]
+            self._anc_delta = got[3]
         self._fp = None   # fastPredict re-seeds from the fresh optimized state
         self._fp_seed = (pose, self._last_sb)
         self.trajectory.append((self.ts[-1], pose))

@@ -7,13 +7,15 @@ keyframes into the BoW/pose-graph loop closure and the dense voxel map (with
 its TSDF mesh), solved poses and NavSatFix fixes into the GPS/VIO global
 fusion. Everything is in-process — module-to-module calls replace ROS
 pub/sub (SURVEY §2 parallelism table). With ``use_line`` a line tracker
-feeds segment observations to the estimator beside the point features. The
-detector of the JAX package is not ported yet; a config that turns it on
-raises at construction.
+feeds segment observations to the estimator beside the point features. With
+``burst_chunk`` K the estimator stages K frames per flush and the post-solve
+hooks (calibration dump, loop keyframes, the map, GPS fusion, telemetry)
+drain from the trajectory at each flush. The detector of the JAX package is
+not ported yet; a config that turns it on raises at construction.
 
 Run from a dataset directory::
 
-    python -m ground_fusion_tpu_torch <config.yaml> <sequence_dir> [out_dir]
+    python -m ground_fusion_tpu_torch <config.yaml> <sequence_dir> [out_dir] [--burst K]
 """
 
 from __future__ import annotations
@@ -115,6 +117,15 @@ class GroundFusionSystem:
         # with no subscribers.
         self._subs: dict[str, list] = {}
 
+        # burst replay (cfg.burst_chunk): the estimator solves K staged
+        # frames per flush; the post-solve hooks drain from the trajectory
+        # at each flush, with the frames' images kept until then
+        self._burst = bool(cfg.burst_chunk)
+        self._burst_frames: dict[float, tuple] = {}   # t -> (img, depth)
+        self._consumed = 0
+        if self._burst:
+            self.estimator.enable_burst(cfg.burst_chunk)
+
     # ------------------------------------------------------------- telemetry
 
     def subscribe(self, topic: str, fn) -> None:
@@ -176,8 +187,12 @@ class GroundFusionSystem:
         """One synchronized camera frame end-to-end. ``img_right``: rectified
         stereo pair image (used when ``camera.baseline`` > 0 and no RGBD
         depth is supplied). The timed stages each end in a device→host
-        fetch, so their wall-clock times include their device work."""
-        self._seed_tracker_predictions()
+        fetch, so their wall-clock times include their device work (in
+        burst mode ``solve`` waits on the device only at a flush)."""
+        if not self._burst:
+            # prediction seeding reads the freshly solved core; mid-chunk the
+            # core is stale in burst mode, so it seeds nothing there
+            self._seed_tracker_predictions()
         # KLT and the line tracker consume luminance
         img = np.asarray(img)
         img_gray = img.mean(axis=-1) if img.ndim == 3 else img
@@ -191,6 +206,16 @@ class GroundFusionSystem:
 
         with self.stats.time("solve"):
             pose = self.estimator.input_frame(t, feats, line_obs=line_obs)
+
+        if self._burst:
+            if self.pose_graph is not None or self.voxel_map is not None:
+                self._burst_frames[float(t)] = (img, depth)
+                # bound the backlog to one chunk and some slack
+                while len(self._burst_frames) > self.cfg.burst_chunk + 2:
+                    self._burst_frames.pop(next(iter(self._burst_frames)))
+            if pose is not None:
+                self._drain_burst_hooks()
+            return pose
 
         if pose is not None:
             s_wheel = self.calib_dump.append(t, self.estimator.core.state)
@@ -240,6 +265,29 @@ class GroundFusionSystem:
         q_d = mat_to_quat(torch.as_tensor(np.asarray(pg.r_drift, np.float64))).numpy()
         p[3:7] = np_quat.quat_normalize(np_quat.quat_mul(q_d, p[3:7]))
         return p
+
+    def _drain_burst_hooks(self):
+        """Run the post-solve hooks for every trajectory entry that the last
+        flushes produced. Keyframe payloads (window landmark clouds) and the
+        calibration rows come from the post-chunk core — the same data, read
+        once per flush instead of once per frame."""
+        est = self.estimator
+        new = est.trajectory[self._consumed :]
+        if not new:
+            return
+        flags = est.keyframe_flags[self._consumed :]
+        self._consumed = len(est.trajectory)
+        s_wheel = self.calib_dump.append_rows([t for t, _ in new], est.core.state)
+        self._refresh_dr_bias(s_wheel)
+        for (t_k, pose_k), kf in zip(new, flags):
+            if self.global_fusion is not None:
+                self.global_fusion.input_odom(t_k, pose_k)
+            self._publish("odometry", t=t_k, pose=np.asarray(pose_k), is_keyframe=bool(kf))
+            if kf:
+                self._publish("keyframe", t=t_k, pose=np.asarray(pose_k))
+            frame = self._burst_frames.get(float(t_k))
+            if frame is not None:
+                self._loop_and_map(t_k, frame[0], frame[1], pose_k, kf)
 
     def _seed_tracker_predictions(self):
         """Project solved landmarks through the IMU-rate propagated pose into
@@ -456,6 +504,9 @@ class GroundFusionSystem:
 
     def finish(self):
         est = self.estimator
+        if self._burst:
+            est.flush_burst()
+            self._drain_burst_hooks()
         est.write_tum(os.path.join(self.out_dir, "vio.txt"))
         if self.pose_graph is not None:
             self.pose_graph.write_tum(os.path.join(self.out_dir, "loop.txt"))

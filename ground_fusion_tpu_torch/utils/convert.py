@@ -21,7 +21,7 @@ import torch
 from ..estimator.assembly import MargPrior
 from ..estimator.buffers import ImuWindowBuffer, WheelWindowBuffer
 from ..estimator.lines import LineTracks
-from ..estimator.step import EstimatorCore, StepFlags
+from ..estimator.step import EstimatorCore, StepFlags, _flatten, _unflatten, tensor_leaves
 from ..estimator.window import Tracks, WindowState
 from ..global_layers.pose_graph import Keyframe
 from ..gnss.factors import GnssObsWindow
@@ -80,7 +80,9 @@ def prior_from_numpy(src, device, dtype) -> MargPrior:
 
 
 def core_from_numpy(core_np, device, dtype) -> EstimatorCore:
-    """An ``EstimatorCore`` of numpy arrays (same field names) → the port's."""
+    """An ``EstimatorCore`` of numpy arrays (same field names) → the port's;
+    a batched core (a leading axis B on every array, as the fleet's) stays
+    batched."""
     return EstimatorCore(
         state=state_from_numpy(_field(core_np, "state"), device, dtype),
         tracks=tracks_from_numpy(_field(core_np, "tracks"), device, dtype),
@@ -109,10 +111,15 @@ def line_tracks_from_numpy(src, device, dtype):
 
 
 def flags_from_numpy(flags_np, device, dtype) -> StepFlags:
+    """Step flags (same field names) → the port's. ``marg_old`` stays on the
+    host: a bool for one step, a bool array for flags stacked over a burst's
+    K steps (and a fleet's B sequences), whose tensors keep their leading
+    axes."""
     opt = {n: _optional(flags_np, n) for n in
            ("propagate_newest", "gnss_ready", "frame_dts", "fix_yaw_enu", "first_gnss_opt")}
+    marg = np.asarray(_field(flags_np, "marg_old"), bool)
     return StepFlags(
-        marg_old=bool(np.asarray(_field(flags_np, "marg_old"))),
+        marg_old=bool(marg) if marg.ndim == 0 else np.array(marg),
         stationary=_leaf(_field(flags_np, "stationary"), device, dtype),
         wheel_valid=_leaf(_field(flags_np, "wheel_valid"), device, dtype),
         imu_valid=_leaf(_field(flags_np, "imu_valid"), device, dtype),
@@ -161,6 +168,25 @@ def to_numpy(x):
 
 def core_to_numpy(core: EstimatorCore) -> dict:
     return to_numpy(core)
+
+
+def stack_cores(cores) -> EstimatorCore:
+    """B estimator cores (or any NamedTuples of tensors of one structure) →
+    one with a leading batch axis B on every tensor; absent tables stay
+    ``None``. The fleet step (:func:`..estimator.step.make_window_burst_batched`)
+    takes and returns such a core."""
+    cores = list(cores)
+    spec = _flatten(cores[0], [])
+    return _unflatten(spec, iter([torch.stack(ts) for ts in
+                                  zip(*[tensor_leaves(c) for c in cores])]))
+
+
+def unstack_cores(core) -> list:
+    """The inverse of :func:`stack_cores`: B cores (views of the batched
+    tensors)."""
+    leaves = []
+    spec = _flatten(core, leaves)
+    return [_unflatten(spec, iter([t[b] for t in leaves])) for b in range(len(leaves[0]))]
 
 
 # pose-graph database tables: (device tables, host arrays, host integers)

@@ -9,12 +9,8 @@ topics including the pure IMU / pure wheel dead-reckoning diagnostic paths
 from __future__ import annotations
 
 import os
-from collections import namedtuple
 
 import numpy as np
-
-_FetchedState = namedtuple(
-    "_FetchedState", ["ex_cam", "ex_wheel", "s_wheel", "td", "td_wheel"])
 
 
 class CalibrationDump:
@@ -35,21 +31,28 @@ class CalibrationDump:
     def append(self, t: float, state) -> np.ndarray:
         """Append one row per file; returns the fetched wheel intrinsics
         ``(sx, sy, sw)`` so the caller needs no second fetch for them."""
+        return self.append_rows([t], state)
+
+    def append_rows(self, ts, state) -> np.ndarray:
+        """Append one row per file for each time in ``ts``, all from the one
+        ``state`` (a burst's frames drain against the post-chunk state), with
+        one fetch; returns the wheel intrinsics as :meth:`append` does."""
         import torch
 
-        # one packed device→host fetch per solve instead of five small ones
+        # one packed device→host fetch instead of five small ones
         packed = torch.cat([state.ex_cam, state.ex_wheel, state.s_wheel,
                             state.td[None], state.td_wheel[None]]).cpu().numpy()
         ex, exw, s = packed[0:7], packed[7:14], packed[14:17]
-        state = _FetchedState(ex, exw, s, packed[17], packed[18])
-        with open(self.paths["ex_cam"], "a") as f:
-            f.write(f"{t:.6f}," + ",".join(f"{v:.6f}" for v in ex) + "\n")
-        with open(self.paths["ex_wheel"], "a") as f:
-            f.write(f"{t:.6f}," + ",".join(f"{v:.6f}" for v in exw) + "\n")
-        with open(self.paths["intrinsic_wheel"], "a") as f:
-            f.write(f"{t:.6f},{s[0]:.6f},{s[1]:.6f},{s[2]:.6f}\n")
-        with open(self.paths["td"], "a") as f:
-            f.write(f"{t:.6f},{float(state.td):.6f},{float(state.td_wheel):.6f}\n")
+        td, td_wheel = float(packed[17]), float(packed[18])
+        rows = {"ex_cam": [], "ex_wheel": [], "intrinsic_wheel": [], "td": []}
+        for t in ts:
+            rows["ex_cam"].append(f"{t:.6f}," + ",".join(f"{v:.6f}" for v in ex) + "\n")
+            rows["ex_wheel"].append(f"{t:.6f}," + ",".join(f"{v:.6f}" for v in exw) + "\n")
+            rows["intrinsic_wheel"].append(f"{t:.6f},{s[0]:.6f},{s[1]:.6f},{s[2]:.6f}\n")
+            rows["td"].append(f"{t:.6f},{td:.6f},{td_wheel:.6f}\n")
+        for name, lines in rows.items():
+            with open(self.paths[name], "a") as f:
+                f.write("".join(lines))
         return s
 
 

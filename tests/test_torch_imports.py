@@ -136,15 +136,21 @@ def test_lk_level_on_cpu_uses_the_plain_version_and_counts_no_launch():
 
 @pytest.mark.parametrize("switch", ["use_yolo", "burst_chunk"])
 def test_unported_switches_raise_by_name(switch, tmp_path):
+    """``use_yolo`` still raises by name; ``burst_chunk`` is ported: the
+    system builds and puts its estimator in burst mode with that chunk."""
     import dataclasses
 
+    from ground_fusion_tpu_torch.estimator.step import check_supported
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = Config()
     if switch == "burst_chunk":
         cfg = dataclasses.replace(cfg, burst_chunk=8)
-    else:
-        cfg = dataclasses.replace(cfg, **{switch: True})
+        check_supported(cfg)
+        system = GroundFusionSystem(cfg, str(tmp_path), device="cpu")
+        assert system._burst and system.estimator._burst_chunk == 8
+        return
+    cfg = dataclasses.replace(cfg, **{switch: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GroundFusionSystem(cfg, str(tmp_path), device="cpu")
 
@@ -182,11 +188,19 @@ def test_use_line_config_builds_with_lines(tmp_path):
 def test_cli_refuses_unported_flags_by_name(flag, item, monkeypatch, capsys):
     """The JAX package's CLI flags that the port lacks are refused by name,
     with the ROADMAP item that brings them and exit code 2, before anything
-    runs — never read as the output directory."""
+    runs — never read as the output directory. ``--burst K`` is ported: it
+    reaches ``run(burst=K)``, and without an integer K it exits with 2."""
     from ground_fusion_tpu_torch import __main__ as cli
 
     ran = []
     monkeypatch.setattr(cli, "run", lambda *a, **k: ran.append((a, k)))
+    if flag[0] == "--burst":
+        assert cli.main(["cfg.yaml", "seq", "out", *flag, "--device", "cpu"]) == 0
+        assert ran == [(("cfg.yaml", "seq", "out"), {"device": "cpu", "burst": 8})]
+        assert cli.main(["cfg.yaml", "seq", "out", "--burst"]) == 2
+        assert cli.main(["cfg.yaml", "seq", "--burst", "x"]) == 2
+        assert len(ran) == 1
+        return
     assert cli.main(["cfg.yaml", "seq", *flag]) == 2
     assert cli.main(["cfg.yaml", "seq", "out", *flag, "--device", "cpu"]) == 2
     err = capsys.readouterr().err
