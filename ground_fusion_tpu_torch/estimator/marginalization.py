@@ -60,8 +60,10 @@ def _sqrt_factorize(H: Tensor, b: Tensor, eps: float = 1e-8):
     clipped-eigendecomposition factorization is the fallback taken only when
     rounding leaves H indefinite enough that the Cholesky fails. Both are
     computed and the status selects one on the device (the JAX package's
-    ``lax.cond``): no host read, so a burst of steps and the fleet's
-    ``vmap`` run it as they run the rest of the step."""
+    ``lax.cond``): the choice needs no host read of the status, so a burst
+    of steps and the fleet's ``vmap`` run it as they run the rest of the
+    step (on CUDA the eigendecomposition still synchronizes the host, as
+    every ``torch.linalg.eigh`` of the step does)."""
     H = 0.5 * (H + H.mT)
     n = H.shape[-1]
     dtype = H.dtype

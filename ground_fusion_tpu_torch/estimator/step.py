@@ -17,8 +17,10 @@ steps enqueued back to back (:func:`make_window_burst`), the burst with the
 frames' ingest done on the device (:func:`make_window_burst_ingest`, which
 ``pipeline.Estimator.enable_burst`` and ``enable_live`` run) and the fleet of
 B sequences in lockstep (:func:`make_window_burst_batched`, the step under
-``torch.func.vmap``). None of them reads the device between steps: the
-keyframe decisions come from the host with the inputs.
+``torch.func.vmap``). None of them copies anything to the host between
+steps: the keyframe decisions come from the host with the inputs. On CUDA
+the host still waits inside every ``torch.linalg.eigh`` of a step
+(triangulation, marginalization), whose error check synchronizes.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import Tensor
+from torch.utils import _pytree as pytree
 
 from .. import resolve_device
 from ..config import Config
@@ -159,67 +162,25 @@ def make_window_step(cfg: Config, device=None):
     return step, layout
 
 
-# ---------------------------------------------------------------------------
-# Pytrees of tensors: cores, flags and outputs as flat tensor lists
-# ---------------------------------------------------------------------------
-
-
-def _flatten(x, out: list):
-    """Append the tensors of ``x`` (tensors, NamedTuples, dicts, with ``None``
-    and host values kept in the spec) to ``out``; return the spec."""
-    if isinstance(x, Tensor):
-        out.append(x)
-        return ("t",)
-    if isinstance(x, dict):
-        return ("d", [(k, _flatten(v, out)) for k, v in x.items()])
-    if hasattr(x, "_fields"):
-        return ("n", type(x), [_flatten(v, out) for v in x])
-    if isinstance(x, (tuple, list)):
-        return ("n", lambda *v: tuple(v), [_flatten(v, out) for v in x])
-    return ("c", x)
-
-
-def _unflatten(spec, it):
-    kind = spec[0]
-    if kind == "t":
-        return next(it)
-    if kind == "d":
-        return {k: _unflatten(v, it) for k, v in spec[1]}
-    if kind == "n":
-        return spec[1](*[_unflatten(v, it) for v in spec[2]])
-    return spec[1]
-
-
-def tensor_leaves(x) -> list:
-    """The tensors of a core, flags or outputs, in a fixed order."""
-    out = []
-    _flatten(x, out)
-    return out
-
-
-def _map_tensors(fn, x):
-    leaves = []
-    spec = _flatten(x, leaves)
-    return _unflatten(spec, iter([fn(t) for t in leaves]))
-
-
 def _stack_outputs(outs: list) -> dict:
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    return pytree.tree_map(lambda *ts: torch.stack(ts), *outs)
 
 
 def make_packed_codec(template):
-    """(pack, unpack) between a core and THREE flat blobs (one per dtype
-    family: bool, float, integer). The JAX package uses it to cut per-leaf
-    dispatch cost; here it gives a core one flat buffer per family, so that
-    it crosses a boundary (a copy, a fetch) in three transfers. The packed
-    step is bit-identical to the step. Every family must hold one dtype: a
-    narrower blob would round wider leaves, so mixing is refused."""
-    leaves = []
-    spec = _flatten(template, leaves)
+    """(pack, unpack) between a core (or any pytree of tensors) and THREE
+    flat blobs (one per dtype family: bool, float, integer). The JAX package
+    uses it to cut per-leaf dispatch cost; here it gives a pytree one flat
+    buffer per family, so that it crosses a boundary (a copy, a fetch) in
+    three transfers: ``Estimator._upload_staged`` uploads a flush's inputs
+    through it. The packed step is bit-identical to the step. Every family
+    must hold one dtype: a narrower blob would round wider leaves, so mixing
+    is refused."""
+    leaves, spec = pytree.tree_flatten(template)
     fam_of = {}
     for i, leaf in enumerate(leaves):
-        fam = ("f" if leaf.is_floating_point() else "b" if leaf.dtype == torch.bool else "i")
-        fam_of.setdefault(fam, []).append(i)
+        if isinstance(leaf, Tensor):
+            fam = ("f" if leaf.is_floating_point() else "b" if leaf.dtype == torch.bool else "i")
+            fam_of.setdefault(fam, []).append(i)
     fams = sorted(fam_of)                       # deterministic blob order
     for fam in fams:
         mixed = {str(leaves[i].dtype) for i in fam_of[fam]}
@@ -227,21 +188,18 @@ def make_packed_codec(template):
             raise TypeError(
                 f"make_packed_codec: dtype family {fam!r} mixes {sorted(mixed)}; "
                 "packing would round-trip through one of them")
-    fam_dtype = {fam: leaves[fam_of[fam][0]].dtype for fam in fams}
-    shapes = [leaf.shape for leaf in leaves]
-    sizes = [leaf.numel() for leaf in leaves]
 
-    def pack(core):
-        ls = tensor_leaves(core)
+    def pack(tree):
+        ls = pytree.tree_leaves(tree)
         return tuple(torch.cat([ls[i].reshape(-1) for i in fam_of[fam]]) for fam in fams)
 
     def unpack(blobs):
-        out = [None] * len(leaves)
+        out = list(leaves)                      # non-tensor leaves from the template
         for fam, blob in zip(fams, blobs):
-            parts = torch.split(blob, [sizes[i] for i in fam_of[fam]])
+            parts = torch.split(blob, [leaves[i].numel() for i in fam_of[fam]])
             for i, part in zip(fam_of[fam], parts):
-                out[i] = part.reshape(shapes[i]).to(fam_dtype[fam])
-        return _unflatten(spec, iter(out))
+                out[i] = part.reshape(leaves[i].shape)
+        return pytree.tree_unflatten(out, spec)
 
     return pack, unpack
 
@@ -275,7 +233,7 @@ def make_window_burst(cfg: Config, device=None):
         margs = np.asarray(flags_batch.marg_old, bool)
         outs = []
         for k in range(len(margs)):
-            fl = _map_tensors(lambda t: t[k], flags_batch._replace(marg_old=None))
+            fl = pytree.tree_map_only(Tensor, lambda t: t[k], flags_batch)
             core, out = step(core, fl._replace(marg_old=bool(margs[k])))
             outs.append(out)
         return core, _stack_outputs(outs)
@@ -300,19 +258,10 @@ def make_window_burst_batched(cfg: Config, device=None):
     step, layout = make_window_step(cfg, device)
 
     def vstep(cores, flags, marg_old: bool):
-        leaves = []
-        spec = _flatten((cores, flags), leaves)
-        out_spec = []
-
-        def body(*ts):
-            c, fl = _unflatten(spec, iter(ts))
-            res = step(c, fl._replace(marg_old=marg_old))
-            got = []
-            out_spec.append(_flatten(res, got))
-            return tuple(got)
-
-        got = torch.func.vmap(body)(*leaves)
-        return _unflatten(out_spec[0], iter(got))
+        args = (cores, flags._replace(marg_old=None))
+        dims = pytree.tree_map(lambda x: 0 if isinstance(x, Tensor) else None, args)
+        return torch.func.vmap(lambda c, fl: step(c, fl._replace(marg_old=marg_old)),
+                               in_dims=dims, out_dims=(dims[0], 0))(*args)
 
     def burst(cores: EstimatorCore, flags_batch: StepFlags):
         margs = np.asarray(flags_batch.marg_old, bool)
@@ -320,7 +269,7 @@ def make_window_burst_batched(cfg: Config, device=None):
         dev = cores.state.poses.device
         outs = []
         for k in range(margs.shape[0]):
-            fl = _map_tensors(lambda t: t[k], flags_batch._replace(marg_old=None))
+            fl = pytree.tree_map_only(Tensor, lambda t: t[k], flags_batch)
             parts = []
             for branch in (True, False):
                 sel = np.nonzero(margs[k] == branch)[0]
@@ -330,18 +279,20 @@ def make_window_burst_batched(cfg: Config, device=None):
                 if len(sel):
                     idx = torch.as_tensor(sel, device=dev)
                     sub = lambda t: t.index_select(0, idx)
-                    parts.append((idx, vstep(_map_tensors(sub, cores), _map_tensors(sub, fl),
-                                             branch)))
+                    parts.append((idx, vstep(pytree.tree_map_only(Tensor, sub, cores),
+                                             pytree.tree_map_only(Tensor, sub, fl), branch)))
             if len(parts) == 1:
                 cores, out = parts[0][1]
             else:
                 (ia, ra), (ib, rb) = parts
-                ta, tb = [], []
-                spec = _flatten(ra, ta)
-                _flatten(rb, tb)
-                merged = [torch.zeros((n_b,) + a.shape[1:], dtype=a.dtype, device=dev)
-                          .index_copy(0, ia, a).index_copy(0, ib, b) for a, b in zip(ta, tb)]
-                cores, out = _unflatten(spec, iter(merged))
+
+                def merge(a, b):
+                    if not isinstance(a, Tensor):
+                        return a
+                    return (torch.zeros((n_b,) + a.shape[1:], dtype=a.dtype, device=dev)
+                            .index_copy(0, ia, a).index_copy(0, ib, b))
+
+                cores, out = pytree.tree_map(merge, ra, rb)
             outs.append(out)
         return cores, _stack_outputs(outs)
 
@@ -352,7 +303,8 @@ def make_window_burst_ingest(cfg: Config, device=None):
     """Burst replay WITH on-device measurement ingest: each of the K steps
     first writes frame k's sensor interval and feature observations into the
     core, then runs the window step — ingest → solve → marginalize → slide,
-    K times, with no device read in between. ``burst(core, xs)``:
+    K times, with no device→host copy in between (the host still waits
+    inside each step's ``torch.linalg.eigh``). ``burst(core, xs)``:
 
     - ``i_*`` / ``w_*`` — padded IMU/wheel interval tensors for buffer slot
       F-1, each with a leading axis K

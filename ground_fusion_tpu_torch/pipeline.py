@@ -58,7 +58,7 @@ from .estimator.initialization import (
 )
 from .estimator.lines import empty_line_tracks, slide_old_lines
 from .estimator.sfm import N_HYPOTHESES, relative_pose_ransac, sfm_construct
-from .estimator.step import EstimatorCore, StepFlags, make_window_step
+from .estimator.step import EstimatorCore, StepFlags, make_packed_codec, make_window_step
 from .estimator.window import empty_state, empty_tracks, slide_old_state, slide_old_tracks
 from .geometry.se3 import pose as make_pose, pose_compose, pose_inverse
 from .geometry.so3 import mat_to_quat, quat_to_mat
@@ -544,39 +544,39 @@ class Estimator:
         """Refresh the host mirrors from the device tables (one fetch)."""
         self._set_mirrors(self._fetch(self._mirror_tensors(self.core)))
 
-    def _assign_slots_mirror(self, feats: dict[int, FrameFeature]):
-        """Mirror-side twin of :meth:`_assign_slots`: allocate/recycle slots
-        against the NumPy mirror and return the padded write-set for the
-        on-device ingest. ``rows`` is a permutation of all slot indices
-        (written slots first) so every device write is collision-free."""
-        ml = self.cfg.solver.max_landmarks
+    def _assign_mirror(self, items, slot_of: dict, free: list, active: np.ndarray,
+                       obs_valid: np.ndarray, n_slots: int, width: int, obs_xy=None):
+        """Mirror-side twin of :meth:`_assign_slots` for the landmark table
+        and of :meth:`_assign_line_slots` for the line table: allocate and
+        recycle slots against the table's NumPy mirrors (``active``,
+        ``obs_valid`` and, for points, ``obs_xy``, updated in place) for the
+        ``(id, row)`` pairs of ``items``, and return the padded write-set for
+        the on-device ingest. ``rows`` is a permutation of all slot indices
+        (written slots first), so every device write is collision-free."""
         sf = self.f - 1
-        for fid, slot in list(self.slot_of.items()):
-            if not self._mirror_active[slot]:
-                del self.slot_of[fid]
-                self.free_slots.append(slot)
+        for key, slot in list(slot_of.items()):
+            if not active[slot]:
+                del slot_of[key]
+                free.append(slot)
 
         written, vals, news = [], [], []
-        for fid, ft in feats.items():
-            slot = self.slot_of.get(fid)
+        for key, row in items:
+            slot = slot_of.get(key)
             if slot is None:
-                if not self.free_slots:
-                    continue
-                slot = self.free_slots.pop()
-                self.slot_of[fid] = slot
+                if not free:
+                    continue  # table full — drop, as the per-frame path does
+                slot = free.pop()
+                slot_of[key] = slot
+                active[slot] = True
+                obs_valid[slot, :] = False
                 news.append(True)
-                self._mirror_active[slot] = True
-                self._mirror_obs_valid[slot, :] = False
             else:
                 news.append(False)
             written.append(slot)
-            vals.append([ft.x, ft.y, ft.vx, ft.vy, ft.depth])
-            self._mirror_obs_valid[slot, sf] = True
-            self._mirror_obs_xy[slot, sf] = (ft.x, ft.y)
-        return self._permutation_writes(ml, written, vals, news, 5)
-
-    @staticmethod
-    def _permutation_writes(n_slots, written, vals, news, width):
+            vals.append(row)
+            obs_valid[slot, sf] = True
+            if obs_xy is not None:
+                obs_xy[slot, sf] = row[0:2]
         n = len(written)
         rows = np.empty(n_slots, np.int64)
         rows[:n] = written
@@ -590,33 +590,6 @@ class Estimator:
         nmask[:n] = news
         return rows, v, wmask, nmask
 
-    def _assign_line_slots_mirror(self, lobs: Optional[dict]):
-        """Line twin of :meth:`_assign_slots_mirror` (same permutation-write
-        scheme against the line-table mirror)."""
-        sf = self.f - 1
-        for lid, slot in list(self.line_slot_of.items()):
-            if not self._mirror_line_active[slot]:
-                del self.line_slot_of[lid]
-                self.free_line_slots.append(slot)
-
-        written, vals, news = [], [], []
-        for lid, ob in (lobs or {}).items():
-            slot = self.line_slot_of.get(lid)
-            if slot is None:
-                if not self.free_line_slots:
-                    continue
-                slot = self.free_line_slots.pop()
-                self.line_slot_of[lid] = slot
-                news.append(True)
-                self._mirror_line_active[slot] = True
-                self._mirror_line_obs_valid[slot, :] = False
-            else:
-                news.append(False)
-            written.append(slot)
-            vals.append(np.asarray(ob, np.float64)[:4])
-            self._mirror_line_obs_valid[slot, sf] = True
-        return self._permutation_writes(self.cfg.lines.max_lines, written, vals, news, 4)
-
     def _mirror_valids(self):
         out = [self._mirror_obs_valid]
         if self.cfg.use_line:
@@ -629,14 +602,20 @@ class Estimator:
         self.ts.append(t)
         if len(self.ts) > f:
             self.ts.pop(0)
-        rows, vals, wmask, nmask = self._assign_slots_mirror(feats)
+        rows, vals, wmask, nmask = self._assign_mirror(
+            ((fid, [ft.x, ft.y, ft.vx, ft.vy, ft.depth]) for fid, ft in feats.items()),
+            self.slot_of, self.free_slots, self._mirror_active, self._mirror_obs_valid,
+            self.cfg.solver.max_landmarks, 5, self._mirror_obs_xy)
         fr = dict(
             i_dts=iv[0], i_acc=iv[1], i_gyr=iv[2], i_valid=iv[3], i_acc0=iv[4], i_gyr0=iv[5],
             w_dts=wv[0], w_vel=wv[1], w_gyr=wv[2], w_valid=wv[3], w_vel0=wv[4], w_gyr0=wv[5],
             rows=rows, vals=vals, wmask=wmask, nmask=nmask,
         )
         if self.cfg.use_line:
-            lr, lv, lw, ln = self._assign_line_slots_mirror(line_obs)
+            lr, lv, lw, ln = self._assign_mirror(
+                ((lid, np.asarray(ob, np.float64)[:4]) for lid, ob in (line_obs or {}).items()),
+                self.line_slot_of, self.free_line_slots, self._mirror_line_active,
+                self._mirror_line_obs_valid, self.cfg.lines.max_lines, 4)
             fr.update(l_rows=lr, l_vals=lv, l_wmask=lw, l_nmask=ln)
         if self.gnss is not None:
             frame_dts = np.diff(np.asarray(self.ts, np.float64), prepend=self.ts[0])
@@ -667,22 +646,15 @@ class Estimator:
 
     def _upload_staged(self) -> dict:
         """The staged frames' inputs, stacked on a leading axis K, in ONE
-        host→device copy per dtype family (floats in the state's dtype,
-        masks, slot indices); the keyframe decisions stay on the host."""
-        keys = list(self._burst_xs[0])
-        stacked = {k: np.stack([np.asarray(fr[k]) for fr in self._burst_xs]) for k in keys}
-        fams = {"b": [k for k in keys if stacked[k].dtype == np.bool_],
-                "i": [k for k in keys if k in ("rows", "l_rows")]}
-        fams["f"] = [k for k in keys if k not in fams["b"] and k not in fams["i"]]
-        out = {}
-        for fam, names in fams.items():
-            if not names:
-                continue
-            dtype = {"b": torch.bool, "i": torch.int64, "f": None}[fam]
-            flat = np.concatenate([stacked[k].reshape(-1) for k in names])
-            dev = self._upload(flat, dtype)
-            for k, part in zip(names, torch.split(dev, [stacked[k].size for k in names])):
-                out[k] = part.reshape(stacked[k].shape)
+        host→device copy per dtype family (:func:`make_packed_codec`: floats
+        in the state's dtype, masks, slot indices); the keyframe decisions
+        stay on the host."""
+        host = {}
+        for name in self._burst_xs[0]:
+            a = torch.from_numpy(np.stack([np.asarray(fr[name]) for fr in self._burst_xs]))
+            host[name] = a.to(self.dtype) if a.is_floating_point() else a
+        pack, unpack = make_packed_codec(host)
+        out = unpack([self._upload(blob, blob.dtype) for blob in pack(host)])
         out["marg_old"] = np.asarray([kf for _, kf in self._burst_meta], bool)
         return out
 

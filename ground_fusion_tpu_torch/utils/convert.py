@@ -17,11 +17,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..estimator.assembly import MargPrior
 from ..estimator.buffers import ImuWindowBuffer, WheelWindowBuffer
 from ..estimator.lines import LineTracks
-from ..estimator.step import EstimatorCore, StepFlags, _flatten, _unflatten, tensor_leaves
+from ..estimator.step import EstimatorCore, StepFlags
 from ..estimator.window import Tracks, WindowState
 from ..global_layers.pose_graph import Keyframe
 from ..gnss.factors import GnssObsWindow
@@ -175,18 +176,15 @@ def stack_cores(cores) -> EstimatorCore:
     one with a leading batch axis B on every tensor; absent tables stay
     ``None``. The fleet step (:func:`..estimator.step.make_window_burst_batched`)
     takes and returns such a core."""
-    cores = list(cores)
-    spec = _flatten(cores[0], [])
-    return _unflatten(spec, iter([torch.stack(ts) for ts in
-                                  zip(*[tensor_leaves(c) for c in cores])]))
+    return pytree.tree_map(
+        lambda *ts: torch.stack(ts) if isinstance(ts[0], torch.Tensor) else ts[0], *cores)
 
 
 def unstack_cores(core) -> list:
     """The inverse of :func:`stack_cores`: B cores (views of the batched
     tensors)."""
-    leaves = []
-    spec = _flatten(core, leaves)
-    return [_unflatten(spec, iter([t[b] for t in leaves])) for b in range(len(leaves[0]))]
+    n_b = core.state.poses.shape[0]
+    return [pytree.tree_map_only(torch.Tensor, lambda t: t[b], core) for b in range(n_b)]
 
 
 # pose-graph database tables: (device tables, host arrays, host integers)

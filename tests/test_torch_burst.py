@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 torch.set_num_threads(1)      # small tensors; leave the cores to the other test workers
 
@@ -32,7 +33,6 @@ from ground_fusion_tpu_torch.estimator.step import (
     make_window_burst_batched,
     make_window_step,
     make_window_step_packed,
-    tensor_leaves,
 )
 from ground_fusion_tpu_torch.utils.convert import stack_cores, unstack_cores
 
@@ -45,8 +45,12 @@ def _small(**kw):
         cfg.solver, window_size=4, max_landmarks=32, max_iters=2))
 
 
+def _tensors(x):
+    return [t for t in pytree.tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
 def _equal(a, b):
-    la, lb = tensor_leaves(a), tensor_leaves(b)
+    la, lb = _tensors(a), _tensors(b)
     return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
 
 

@@ -6,15 +6,15 @@ burst mode, against the port's own per-frame path (which
 ``tests/test_burst.py``, in float64 on the CPU at ``window_size=4``,
 ``max_landmarks=32`` and 2 dogleg iterations:
 
-- a failure inside a chunk truncates its odometry and reboots.
+- burst 5 and live mode match the per-frame replay within 1e-3 m (one
+  estimator replayed to NON_LINEAR, then copied into the three modes);
+- a staged frame makes no device read, a flush one upload per dtype family
+  and one fetch;
+- a failure inside a chunk truncates its odometry and reboots;
+- with lines, the burst's line-slot writes and mirrors give the per-frame
+  line table.
 
-Under ``-m slow`` (the replays cost the tier-1 run more than its time limit
-leaves; ``chip_smoke.py`` phase 11b holds the same modes on the card at full
-width): burst 5 and live mode match the per-frame replay within 1e-3 m (one
-estimator replayed to NON_LINEAR, then copied into the three modes), a
-staged frame makes no device read, a flush one upload per dtype family and
-one fetch; with lines, the burst's line-slot writes and mirrors give the
-per-frame line table; the GNSS drive of ``test_torch_gnss_pipeline.py`` in
+Under ``-m slow``: the GNSS drive of ``test_torch_gnss_pipeline.py`` in
 burst mode (the auto-flush on pending epochs and before alignment) against
 per frame; and the port's burst replay against the JAX package's
 ``run_pipeline(burst=5)`` on the same inputs (the only test that compiles a
@@ -98,7 +98,6 @@ def modes(started, drive):
     return out
 
 
-@pytest.mark.slow
 def test_live_and_burst_match_per_frame(modes, drive):
     """The same number of poses, each within 1e-3 m of the per-frame pose,
     the same keyframe decisions, ATE < 0.05 m (``tests/test_burst.py:56,
@@ -117,7 +116,6 @@ def test_live_and_burst_match_per_frame(modes, drive):
         assert est.reboots == 0
 
 
-@pytest.mark.slow
 def test_staged_frames_make_no_device_read(modes):
     """Per frame: one mask fetch a frame. Live: every frame flushed at once
     (chunks of 1), nothing left staged. Burst 5 over 6 frames: chunks of 5
@@ -159,7 +157,6 @@ def test_burst_per_frame_failure_truncates_and_reboots(started, drive):
     assert est._burst_xs == [] and not est._mirror_synced
 
 
-@pytest.mark.slow
 def test_burst_with_lines_matches_per_frame():
     """``use_line`` with 8 line slots, ``min_obs`` 4 and six segments: a line
     enters at frame 8 and triangulates by frame 11. One estimator per frame
