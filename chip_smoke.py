@@ -114,13 +114,35 @@ Phases (any failure ends the run with a non-zero exit code):
               preintegration against the sequential loop at 11 intervals of
               48 IMU and 24 wheel samples, mixed masks, float64, to 1e-10;
               ms per call of both.
+12. checkpoint — (a) phase 4's config with the dense map on (no mesh)
+              through ``__main__.main`` on the first 20 frames of phase 4's
+              sequence with ``--save-state``; ``build_grid`` of the run's
+              ``pose_graph.npz`` and ``map.ply``; the whole sequence with
+              ``--resume``, ``--load-graph`` and ``--load-grid``: no frame or
+              sensor row at or before the snapshot fed again, post-snapshot
+              ATE < 0.05 m and < 5 % of the path, no reboot, the state on the
+              GPU, one ``lk_track`` launch per tracked frame and no plain
+              version, new tracker ids above the restored ones, the loaded
+              keyframes then the new ones in ``loop.txt`` with indices
+              continuing, ``prior_grid.pgm`` within 0.02 of ``grid.pgm``;
+              prints the largest position difference from phase 4's
+              ``vio.txt``. (b) Ten textured keyframes saved, loaded into a
+              fresh ``PoseGraph`` on the GPU, a drifted revisit of place 0:
+              a loop edge against a loaded keyframe, ``hamming_match``
+              launches = matches. (c) Two processes (this script with
+              ``--shard-worker``) on the one GPU in a Gloo group: the
+              edge-sharded 4-DoF graph against ``optimize_4dof`` to 1e-8 in
+              float64, and the sharded fleet of 11c (2 cores a rank) against
+              the unsharded fleet at ``tests/test_burst.py``'s tolerances;
+              ms per solve and per fleet step. NCCL across cards is not run.
 Then the card's line, the ``{"kernels": [...]}`` line (one entry per kernel
 entry point: ``lk_level``, ``lk_track``, ``hamming_matrix``,
-``hamming_match``; launches counted on the paths of phases 4, 5, 7, 8, 10
-and 11), and the last line ``{"ok": true, "device": {...}}``.
+``hamming_match``; launches counted on the paths of phases 4, 5, 7, 8, 10,
+11 and 12), and the last line ``{"ok": true, "device": {...}}``.
 
 The script imports only the port (never JAX or the JAX package), needs no
-network, and starts no process that outlives it.
+network, and starts no process that outlives it (phase 12c's two ranks are
+joined with a timeout and killed past it).
 """
 
 from __future__ import annotations
@@ -2292,36 +2314,30 @@ def phase_modes_cli(torch, work_dir, main_times, device="cuda"):
     (``device="cpu"`` rehearses it on the CPU)."""
     import numpy as np
 
-    from ground_fusion_tpu_torch import __main__ as cli
     from ground_fusion_tpu_torch.ops.cuda import hamming, klt
     from ground_fusion_tpu_torch.pipeline import Estimator
 
     seq, out4 = os.path.join(work_dir, "seq"), os.path.join(work_dir, "out")
     out = os.path.join(work_dir, "out_burst")
-    systems, staged_fetches, fill_fetches = [], [], []
-    run, fetch = cli.run, Estimator._fetch_track_masks
-
-    def capture(*a, **k):
-        systems.append(run(*a, **k))
-        return systems[-1]
+    staged_fetches, fill_fetches = [], []
+    fetch = Estimator._fetch_track_masks
 
     def counted(self):
         (staged_fetches if self.solver_flag == Estimator.NON_LINEAR else fill_fetches).append(1)
         return fetch(self)
 
     _zero_counters(klt, hamming)
-    cli.run, Estimator._fetch_track_masks = capture, counted
+    Estimator._fetch_track_masks = counted
     try:
         t0 = time.perf_counter()
-        rc = cli.main([_loop_config(work_dir), seq, out, "--burst", str(BURST_CHUNK)]
-                      + ([] if device == "cuda" else ["--device", device]))
+        rc, system = run_cli([_loop_config(work_dir), seq, out, "--burst", str(BURST_CHUNK)]
+                             + ([] if device == "cuda" else ["--device", device]))
         _sync(torch, torch.device(device))
         wall = time.perf_counter() - t0
     finally:
-        cli.run, Estimator._fetch_track_masks = run, fetch
+        Estimator._fetch_track_masks = fetch
     counts = _read_counters(klt, hamming)
-    check(rc == 0 and len(systems) == 1, f"modes: the CLI with --burst returned {rc}")
-    system = systems[0]
+    check(rc == 0 and system is not None, f"modes: the CLI with --burst returned {rc}")
     est = system.estimator
 
     n4, _, _ = trajectory_ate(os.path.join(out4, "vio.txt"), os.path.join(seq, "gt.csv"))
@@ -2510,6 +2526,516 @@ def phase_modes(torch, work_dir, main_times):
     return counts
 
 
+# -------------------------------------------------------------------------- 12
+
+# Checkpoint and sharding (phase 12): run 1 takes the first CKPT_FRAMES frames
+# of phase 4's sequence with the dense map on and saves its state; run 2
+# resumes it over the first CKPT_DRIVE frames (a cut of phase 4's 40, to keep
+# the phase near phase 4's wall time). The resumed poses are held to the
+# oracle's bound (tests/test_checkpoint.py:147) and the republished prior grid
+# to the PGM round trip's (tests/test_checkpoint.py:161).
+CKPT_FRAMES, CKPT_DRIVE = 15, 30
+RESUME_ATE_BOUND_M = 0.05
+GRID_PROB_TOL = 0.02
+RELOC_KEYFRAMES = 10
+SHARD_WORLD = 2
+SHARD_TIMEOUT_S = 300
+SHARD_GRAPH_TOL = 1e-8       # tests/test_parallel.py, float64
+
+
+def _ckpt_config(work_dir: str) -> str:
+    """Phase 4's config (``groundchallenge.yaml`` with loop closure) with the
+    dense map on, without its mesh."""
+    path = os.path.join(work_dir, "groundchallenge_ckpt.yaml")
+    with open(_loop_config(work_dir)) as src, open(path, "w") as dst:
+        dst.write(src.read().rstrip("\n") + "\nmap:\n  enabled: true\n  mesh: false\n")
+    return path
+
+
+def head_sequence(seq_dir: str, out_dir: str, n_frames: int) -> str:
+    """A copy of ``seq_dir`` whose ``frames.csv`` lists only its first
+    ``n_frames`` frames (the images are referenced by absolute path)."""
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(seq_dir):
+        if name.endswith(".csv") and name != "frames.csv":
+            shutil.copy(os.path.join(seq_dir, name), out_dir)
+    with open(os.path.join(seq_dir, "frames.csv")) as src:
+        rows = [r.strip().split(",") for r in src if r.strip()][:n_frames]
+    with open(os.path.join(out_dir, "frames.csv"), "w") as dst:
+        for r in rows:
+            dst.write(",".join([r[0]] + [os.path.join(seq_dir, p.strip()) if p.strip() else ""
+                                         for p in r[1:]]) + "\n")
+    return out_dir
+
+
+class FeedLog:
+    """Records the timestamp of every frame and sensor row that reaches a
+    ``GroundFusionSystem`` (its ``input_*`` methods wrapped on the class)."""
+
+    NAMES = ("input_image", "input_imu", "input_wheel", "input_gnss", "input_gps_fix")
+
+    def __init__(self):
+        self.times = {name: [] for name in self.NAMES}
+
+    def __enter__(self):
+        from ground_fusion_tpu_torch.system import GroundFusionSystem
+
+        self._saved = {name: getattr(GroundFusionSystem, name) for name in self.NAMES}
+        for name, inner in self._saved.items():
+            def wrapped(system, t, *a, _inner=inner, _log=self.times[name], **k):
+                _log.append(float(t))
+                return _inner(system, t, *a, **k)
+
+            setattr(GroundFusionSystem, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from ground_fusion_tpu_torch.system import GroundFusionSystem
+
+        for name, inner in self._saved.items():
+            setattr(GroundFusionSystem, name, inner)
+
+
+def run_cli(argv: list):
+    """``__main__.main(argv)``; returns (exit code, the finished system)."""
+    from ground_fusion_tpu_torch import __main__ as cli
+
+    systems, run = [], cli.run
+
+    def capture(*a, **k):
+        systems.append(run(*a, **k))
+        return systems[-1]
+
+    cli.run = capture
+    try:
+        rc = cli.main(argv)
+    finally:
+        cli.run = run
+    return rc, (systems[0] if systems else None)
+
+
+def phase_checkpoint_cli(torch, work_dir, device="cuda"):
+    """12a: save after CKPT_FRAMES frames of phase 4's sequence, build the
+    grid, resume over CKPT_DRIVE frames with the graph and the grid."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.global_layers.dense_map import OccupancyGrid2D
+    from ground_fusion_tpu_torch.ops.cuda import hamming, klt
+    from ground_fusion_tpu_torch.scripts import build_grid
+
+    seq, out4 = os.path.join(work_dir, "seq"), os.path.join(work_dir, "out")
+    cfg_path = _ckpt_config(work_dir)
+    head = head_sequence(seq, os.path.join(work_dir, "seq_head"), CKPT_FRAMES)
+    drive = head_sequence(seq, os.path.join(work_dir, "seq_drive"), CKPT_DRIVE)
+    out1, out2 = os.path.join(work_dir, "out_save"), os.path.join(work_dir, "out_resume")
+    dev_args = [] if device == "cuda" else ["--device", device]
+
+    _zero_counters(klt, hamming)
+    t0 = time.perf_counter()
+    rc, sys1 = run_cli([cfg_path, head, out1, "--save-state"] + dev_args)
+    _sync(torch, torch.device(device))
+    wall1 = time.perf_counter() - t0
+    counts1 = _read_counters(klt, hamming)
+    check(rc == 0 and sys1 is not None, f"checkpoint: run 1 returned {rc}")
+    est1 = sys1.estimator
+    check(est1.solver_flag == est1.NON_LINEAR, "checkpoint: run 1 did not reach the non-linear mode")
+    for name in ("vio_state.npz", "pose_graph.npz", "map.ply"):
+        check(os.path.exists(os.path.join(out1, name)), f"checkpoint: run 1 wrote no {name}")
+    t_snap = est1.ts[-1]
+    restored_ids = set(est1.slot_of)
+    kfs1 = [(k.index, k.t) for k in sys1.pose_graph.kfs]
+
+    grid_path = os.path.join(work_dir, "grid.pgm")
+    t0 = time.perf_counter()
+    check(build_grid.main([out1, grid_path] + dev_args) == 0, "checkpoint: build_grid failed")
+    grid_s = time.perf_counter() - t0
+
+    _zero_counters(klt, hamming)
+    t0 = time.perf_counter()
+    with FeedLog() as log:
+        rc, sys2 = run_cli([cfg_path, drive, out2, "--resume", os.path.join(out1, "vio_state.npz"),
+                            "--load-graph", os.path.join(out1, "pose_graph.npz"),
+                            "--load-grid", grid_path] + dev_args)
+    _sync(torch, torch.device(device))
+    wall2 = time.perf_counter() - t0
+    counts2 = _read_counters(klt, hamming)
+    check(rc == 0 and sys2 is not None, f"checkpoint: run 2 returned {rc}")
+    est2 = sys2.estimator
+
+    # nothing at or before the snapshot is fed again
+    fed = {name: np.asarray(ts) for name, ts in log.times.items()}
+    early = {name: int((ts <= t_snap).sum()) for name, ts in fed.items() if len(ts)}
+    check(not any(early.values()), f"checkpoint: rows at or before the snapshot fed again: {early}")
+    n_after = CKPT_DRIVE - CKPT_FRAMES
+    check(len(fed["input_image"]) == n_after,
+          f"checkpoint: {len(fed['input_image'])} frames fed after the snapshot, expected {n_after}")
+
+    # the resumed poses against the truth
+    est = np.loadtxt(os.path.join(out2, "vio.txt"), ndmin=2)
+    gt = np.loadtxt(os.path.join(seq, "gt.csv"), ndmin=2)
+    check(bool(np.isfinite(est).all()), "checkpoint: non-finite pose in the resumed vio.txt")
+    gt_i = np.stack([np.interp(est[:, 0], gt[:, 0], gt[:, i]) for i in (1, 2, 3)], -1)
+    post = est[:, 0] > t_snap
+    path = float(np.linalg.norm(np.diff(gt_i, axis=0), axis=1).sum())
+    from ground_fusion_tpu_torch.utils.evaluate import ate_rmse
+
+    check(post.sum() >= n_after - 2, f"checkpoint: {int(post.sum())} poses after the snapshot")
+    ate = float(ate_rmse(est[post, 1:4], gt_i[post]))
+    print(f"checkpoint: snapshot at t = {t_snap:.4f} s (frame {CKPT_FRAMES - 1}); run 2: "
+          f"{len(est)} poses ({int(post.sum())} after the snapshot), post-snapshot ATE {ate:.5f} m "
+          f"(bounds {RESUME_ATE_BOUND_M} m and {ATE_BOUND_OF_PATH:.0%} of the {path:.4f} m path), "
+          f"reboots {est2.reboots}", flush=True)
+    check(ate < RESUME_ATE_BOUND_M, f"checkpoint: post-snapshot ATE {ate:.4f} m")
+    check(ate < ATE_BOUND_OF_PATH * path, f"checkpoint: post-snapshot ATE {ate:.4f} m over {path:.3f} m")
+    check(est2.reboots == 0, "checkpoint: the resumed estimator rebooted")
+    check(all(t.device.type == device for t in list(est2.core.state) + list(est2.core.tracks)),
+          f"checkpoint: a state tensor is not on {device}")
+
+    # one lk_track launch per tracked frame (the first frame after the
+    # resume has no previous image), no plain version
+    tracked = sys2.stats.counts["track"] - 1
+    check(tracked == n_after - 1, f"checkpoint: {tracked} tracked frames after the resume")
+    if device == "cuda":
+        check(counts2["lk_track"] == tracked and counts1["lk_track"] == CKPT_FRAMES - 1,
+              f"checkpoint: {counts1['lk_track']} / {counts2['lk_track']} lk_track launches")
+        check(counts1["plain"] == 0 and counts2["plain"] == 0, "checkpoint: a plain version ran")
+
+    # the tracker's ids continue above the restored ones
+    new_ids = set(est2.slot_of) - restored_ids
+    check(sys2.tracker.next_id > max(restored_ids) and new_ids
+          and min(new_ids) > max(restored_ids),
+          f"checkpoint: new ids from {min(new_ids, default=None)}, restored up to {max(restored_ids)}")
+
+    # loop.txt: the loaded keyframes, then the new ones, indices continuing
+    kfs2 = [(k.index, k.t) for k in sys2.pose_graph.kfs]
+    loop_lines = np.loadtxt(os.path.join(out2, "loop.txt"), ndmin=2)
+    check(kfs2[: len(kfs1)] == kfs1 and [i for i, _ in kfs2] == list(range(len(kfs2)))
+          and len(kfs2) > len(kfs1) and len(loop_lines) == len(kfs2)
+          and np.allclose(loop_lines[: len(kfs1), 0], [t for _, t in kfs1], atol=1e-6),
+          f"checkpoint: keyframes {kfs1} then {kfs2[len(kfs1):]}, {len(loop_lines)} lines in loop.txt")
+
+    # the republished prior grid
+    g0 = OccupancyGrid2D.load_pgm(grid_path, device="cpu")
+    g1 = OccupancyGrid2D.load_pgm(os.path.join(out2, "prior_grid.pgm"), device="cpu")
+    grid_err = float(np.abs(g1.probability() - g0.probability()).max())
+    check(g1.n == g0.n and g1.res == g0.res and np.allclose(g1.origin, g0.origin)
+          and grid_err <= GRID_PROB_TOL, f"checkpoint: prior_grid.pgm differs from grid.pgm ({grid_err})")
+    check(sys2.prior_grid.logodds.device.type == device, "checkpoint: the prior grid is not on the device")
+    occupied = int((g0.probability() > 0.6).sum())
+
+    a = np.loadtxt(os.path.join(out4, "vio.txt"), ndmin=2)
+    shared, ia, ib = np.intersect1d(np.round(a[:, 0], 6), np.round(est[post, 0], 6),
+                                    return_indices=True)
+    diff = float(np.abs(a[ia, 1:4] - est[post][ib, 1:4]).max()) if len(shared) else float("nan")
+    print(f"checkpoint: run 1 {wall1:.1f} s ({CKPT_FRAMES} frames), grid {grid_s:.2f} s "
+          f"({g0.n}x{g0.n} @ {g0.res} m, {occupied} occupied cells), run 2 {wall2:.1f} s "
+          f"({n_after} frames); {len(kfs1)} loaded + {len(kfs2) - len(kfs1)} new keyframes, new ids "
+          f"from {min(new_ids)} (restored up to {max(restored_ids)}), prior grid within "
+          f"{grid_err:.4f}; largest position difference from phase 4's vio.txt at {len(shared)} "
+          f"shared timestamps {diff:.5f} m (not bounded: the tracker restarts at the resume); "
+          f"launches run 1 {counts1}, run 2 {counts2}", flush=True)
+    return {k: counts1[k] + counts2[k] for k in counts1}
+
+
+def reloc_texture(np, place: int):
+    """The place texture of tests/test_pose_graph_e2e.py (120x160)."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    r = np.random.default_rng(100 + place)
+    img = np.kron(r.normal(0, 1, (30, 40)), np.ones((4, 4)))
+    pad = np.pad(img, 2, mode="edge")
+    img = np.einsum("ijkl->ij", sliding_window_view(pad, (5, 5))) / 25.0
+    return (img - img.min()) / (img.max() - img.min()) * 255.0
+
+
+def reloc_keyframe(np, pg, k: int, place: int, pose):
+    """tests/test_checkpoint.py::_textured_kf on the port: a keyframe with
+    the place's texture and 40 landmarks of the place in front of it."""
+    from ground_fusion_tpu_torch.global_layers.pose_graph import Keyframe
+    from ground_fusion_tpu_torch.utils import np_quat
+
+    img = reloc_texture(np, place)
+    r2 = np.random.default_rng(500 + place)
+    pc = np.stack([r2.uniform(-1, 1, 40), r2.uniform(-0.8, 0.8, 40), r2.uniform(2, 5, 40)], -1)
+    pts_w = pc @ np_quat.quat_to_mat(np.asarray(pose[3:7], np.float64)).T + pose[0:3]
+    win_norm = pc[:, 0:2] / pc[:, 2:3]
+    win_px = win_norm * 100 + np.array([80, 60])
+    pts, ok, desc, win_desc = pg.describe(img, win_px)
+    kp_norm = (np.asarray(pts) - np.array([80, 60])) / 100.0
+    return Keyframe(
+        index=k, t=float(k), pose=pose, kp=np.concatenate([np.asarray(pts), win_px]),
+        kp_norm=np.concatenate([kp_norm, win_norm]), desc=np.concatenate([desc, win_desc]),
+        kp_ok=np.concatenate([ok, np.ones(len(win_desc), bool)]), win_pts3d=pts_w,
+        win_norm=win_norm, win_desc=win_desc, win_ok=np.ones(len(pts_w), bool))
+
+
+def reloc_config():
+    """The default config with tests/test_checkpoint.py's loop gates."""
+    import dataclasses
+
+    from ground_fusion_tpu_torch.config import Config
+
+    cfg = Config()
+    return dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, min_loop_gap=5,
+                                                             min_matches=12))
+
+
+def reloc_graph(np, device, path: str):
+    """Save the ten keyframes of tests/test_checkpoint.py:51 (a 3 m circle
+    of places) from one graph to ``path``; returns the saved graph."""
+    from ground_fusion_tpu_torch.global_layers.pose_graph import PoseGraph
+    from ground_fusion_tpu_torch.utils.checkpoint import save_pose_graph
+
+    pg = PoseGraph(reloc_config(), device=device)
+    yaws = np.linspace(0, 2 * np.pi, RELOC_KEYFRAMES + 1)[:RELOC_KEYFRAMES]
+    for k in range(RELOC_KEYFRAMES):
+        pose = _yaw_pose(np, yaws[k], np.array([3 * np.cos(yaws[k]), 3 * np.sin(yaws[k]), 0.0]))
+        pg.add_keyframe(reloc_keyframe(np, pg, k, k, pose))
+    save_pose_graph(path, pg)
+    return pg
+
+
+def relocalize(np, pg):
+    """Add a drifted revisit of place 0 to ``pg``; returns the new loop
+    edges (test_checkpoint.py:75-85)."""
+    n_edges = len(pg.loop_edges)
+    pose = _yaw_pose(np, 0.02, np.array([3.0 + 0.08, -0.05, 0.0]))
+    pg.add_keyframe(reloc_keyframe(np, pg, RELOC_KEYFRAMES, 0, pose))
+    return pg.loop_edges[n_edges:]
+
+
+def phase_checkpoint_reloc(torch, work_dir, device="cuda"):
+    """12b: relocalization against a loaded graph."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.global_layers.pose_graph import PoseGraph
+    from ground_fusion_tpu_torch.ops.cuda import hamming, klt
+    from ground_fusion_tpu_torch.utils.checkpoint import load_pose_graph
+
+    path = os.path.join(work_dir, "reloc_graph.npz")
+    _zero_counters(klt, hamming)
+    saved = reloc_graph(np, device, path)
+    pg = PoseGraph(reloc_config(), device=device)
+    t0 = time.perf_counter()
+    load_pose_graph(path, pg)
+    _sync(torch, torch.device(device))
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    check(len(pg.kfs) == RELOC_KEYFRAMES and pg.db.count == RELOC_KEYFRAMES
+          and pg.db.hists.device.type == device, "reloc: the loaded graph")
+    check(np.array_equal(pg.kfs[3].pose, saved.kfs[3].pose)
+          and np.array_equal(pg.kfs[3].vio_pose, saved.kfs[3].vio_pose)
+          and pg.kfs[3].desc.dtype == np.uint32 and pg.kfs[3].kp_ok.dtype == bool,
+          "reloc: a loaded keyframe differs from the saved one")
+    check(torch.equal(pg.db.hists, saved.db.hists), "reloc: the loaded BoW table differs")
+    match_calls = saved.match_calls
+    edges = relocalize(np, pg)
+    counts = _read_counters(klt, hamming)
+    check(edges and edges[-1][0] < RELOC_KEYFRAMES,
+          f"reloc: no loop edge against a loaded keyframe ({edges})")
+    matches = match_calls + pg.match_calls
+    if device == "cuda":
+        check(counts["hamming_match"] == matches and counts["plain"] == 0,
+              f"reloc: {counts['hamming_match']} hamming_match launches for {matches} matches")
+    print(f"reloc: {RELOC_KEYFRAMES} keyframes saved and loaded in {load_ms:.1f} ms, a revisit of "
+          f"place 0 closed a loop against loaded keyframe {edges[-1][0]} "
+          f"(yaw {edges[-1][3]:.4f}), launches {counts}", flush=True)
+    return counts
+
+
+def sharded_graph_problem(np):
+    """The graph of tests/test_parallel.py::test_sharded_pose_graph_matches_single
+    (24 nodes, sequential edges to 2 predecessors, noisy initial values,
+    node 0 fixed), as numpy arrays; 6 iterations."""
+    rng = np.random.default_rng(5)
+    n = 24
+    gt_yaw = np.cumsum(rng.normal(0, 0.1, n))
+    gt_t = np.cumsum(rng.normal(0, 0.5, (n, 3)), axis=0)
+    yaws0 = gt_yaw + rng.normal(0, 0.05, n)
+    ts0 = gt_t + rng.normal(0, 0.1, (n, 3))
+    yaws0[0], ts0[0] = gt_yaw[0], gt_t[0]
+
+    def rotz(y):
+        c, s = np.cos(y), np.sin(y)
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+
+    ei, ej, tij, yij = [], [], [], []
+    for j in range(1, n):
+        for i in (j - 1, j - 2):
+            if i >= 0:
+                ei.append(i)
+                ej.append(j)
+                tij.append(rotz(gt_yaw[i]).T @ (gt_t[j] - gt_t[i]))
+                yij.append(gt_yaw[j] - gt_yaw[i])
+    e = len(ei)
+    return dict(n=n, iters=6, gt_t=gt_t, yaws0=yaws0, ts0=ts0, i=np.asarray(ei),
+                j=np.asarray(ej), t_ij=np.stack(tij), yaw_ij=np.asarray(yij),
+                pitch_i=np.zeros(e), roll_i=np.zeros(e), w_t=np.ones(e), w_yaw=np.ones(e),
+                valid=np.ones(e, bool))
+
+
+def shard_worker(rank: int, world: int, address: str, device: str, out_path: str,
+                 fleet: str) -> None:
+    """One rank of phase 12c (and of tests/test_torch_sharded.py): the
+    edge-sharded graph of :func:`sharded_graph_problem` and, against it, the
+    single-device ``optimize_4dof`` on this rank's device; ``shard_edges``'s
+    rows; the divisibility error; with ``fleet`` ("default" or "small") the
+    sharded fleet of 4 filled cores over 2 steps against the unsharded fleet
+    (on rank 0). Writes its results to ``out_path``."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from ground_fusion_tpu_torch.global_layers.pose_graph import GraphEdges, optimize_4dof
+    from ground_fusion_tpu_torch.parallel import sharded
+
+    torch.set_num_threads(1)
+    dev = sharded.init_group(rank, world, address, backend="gloo",
+                             device=None if device == "cuda" else device)
+    res = {"device": np.asarray(str(dev))}
+    prob = sharded_graph_problem(np)
+    f64 = dict(dtype=torch.float64, device=dev)
+    edges = GraphEdges(*[torch.as_tensor(prob[name]).to(device=dev, dtype=torch.int64)
+                         if name in ("i", "j") else
+                         torch.as_tensor(prob[name], device=dev) if name == "valid" else
+                         torch.as_tensor(prob[name]).to(**f64) for name in GraphEdges._fields])
+    n = prob["n"]
+    args = (torch.as_tensor(prob["yaws0"]).to(**f64), torch.as_tensor(prob["ts0"]).to(**f64),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev).index_fill(0, torch.tensor([0], device=dev), True))
+    solve = sharded.make_sharded_pose_graph(n, prob["iters"])
+    local = sharded.shard_edges(edges)
+    got = {"warm-up": (solve(*args, local), optimize_4dof(*args, edges, iters=prob["iters"]))}
+    res["graph_ms"] = _wall_ms(torch, dev, lambda: got.update(sharded=solve(*args, local)), reps=3)
+    res["single_ms"] = _wall_ms(torch, dev, lambda: got.update(
+        single=optimize_4dof(*args, edges, iters=prob["iters"])), reps=3)
+    res["y_sharded"], res["t_sharded"] = (x.cpu().numpy() for x in got["sharded"])
+    res["y_single"], res["t_single"] = (x.cpu().numpy() for x in got["single"])
+    res["local_i"] = local.i.cpu().numpy()
+    res["local_valid"] = local.valid.cpu().numpy()
+    try:
+        odd = SimpleNamespace(state=SimpleNamespace(poses=torch.zeros(world + 1, 1, 7)))
+        sharded.shard_fleet(odd, None)
+        res["divisible_error"] = np.asarray("")
+    except ValueError as err:
+        res["divisible_error"] = np.asarray(str(err))
+
+    if fleet:
+        from ground_fusion_tpu_torch.config import Config
+        from ground_fusion_tpu_torch.estimator.step import make_window_burst_batched
+        from ground_fusion_tpu_torch.utils.convert import stack_cores
+
+        cfg = Config()
+        if fleet == "small":
+            import dataclasses
+
+            cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+                cfg.solver, max_landmarks=32, max_iters=4))
+        margs = np.array([[(k + b) % 2 == 0 for b in range(FLEET_B)] for k in range(FLEET_K)])
+        cores = stack_cores([filled_core(cfg, torch.float64, dev, b)[0] for b in range(FLEET_B)])
+        flags = flags_batch(filled_core(cfg, torch.float64, dev)[1], margs)
+        run = sharded.make_sharded_fleet(cfg, dev)
+        out = {}
+        res["fleet_ms"] = _wall_ms(torch, dev, lambda: out.update(sharded=run(cores, flags))) / FLEET_K
+        (cs, os_) = out["sharded"]
+        if rank == 0:
+            whole, _ = make_window_burst_batched(cfg, dev)
+            res["whole_ms"] = _wall_ms(torch, dev, lambda: out.update(whole=whole(cores, flags))) / FLEET_K
+            cw, ow = out["whole"]
+            for name, x, y in (("step_pose", os_["pose"], ow["pose"]),
+                               ("end_pose", cs.state.poses, cw.state.poses),
+                               ("inv_depth", cs.tracks.inv_depth, cw.tracks.inv_depth)):
+                res[f"fleet_{name}"] = float((x - y).abs().max())
+                res[f"fleet_{name}_ok"] = bool(torch.allclose(
+                    x, y, rtol=1e-2 if name == "step_pose" else 1e-3, atol=FLEET_TOL[name]))
+            res["fleet_bad_equal"] = bool(torch.equal(cs.wheel_buf.bad, cw.wheel_buf.bad))
+    sharded.close_group()
+    np.savez(out_path, **res)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_shard_pair(work_dir: str, device: str = "cuda", fleet: str = "",
+                   timeout_s: float = SHARD_TIMEOUT_S) -> list:
+    """Start SHARD_WORLD processes of :func:`shard_worker` on ``device``
+    with Gloo (two ranks share one card), wait for them with a timeout, and
+    return each rank's results (dicts of numpy values). Raises when a rank
+    fails or times out; no process outlives the call."""
+    import numpy as np
+
+    address = f"tcp://localhost:{_free_port()}"
+    outs = [os.path.join(work_dir, f"shard_rank{r}.npz") for r in range(SHARD_WORLD)]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--shard-worker", str(r),
+         str(SHARD_WORLD), address, device, outs[r], fleet],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(SHARD_WORLD)]
+    logs, deadline = [], time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise RuntimeError(f"shard rank {r} exited with {p.returncode}:\n{logs[r][-4000:]}")
+    results = []
+    for path in outs:
+        with np.load(path, allow_pickle=False) as z:
+            results.append({k: z[k] for k in z.files})
+    return results
+
+
+def phase_checkpoint_shard(torch, work_dir, device="cuda"):
+    """12c: two Gloo ranks on one device: the edge-sharded graph and the
+    sharded fleet."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    try:
+        ranks = run_shard_pair(work_dir, device, fleet="default")
+    except (RuntimeError, subprocess.TimeoutExpired) as err:
+        fail(f"shard: {err}")
+    wall = time.perf_counter() - t0
+    prob = sharded_graph_problem(np)
+    r0 = ranks[0]
+    for r, res in enumerate(ranks):
+        check(str(res["device"]).startswith(device), f"shard: rank {r} ran on {res['device']}")
+        worst = max(float(np.abs(res["y_sharded"] - res["y_single"]).max()),
+                    float(np.abs(res["t_sharded"] - res["t_single"]).max()))
+        check(worst <= SHARD_GRAPH_TOL, f"shard: rank {r}'s sharded graph {worst:.3e} from the single")
+        check("not divisible" in str(res["divisible_error"]), "shard: no divisibility error")
+    check(float(np.abs(r0["t_sharded"] - prob["gt_t"]).max()) < 1e-5, "shard: the graph missed the truth")
+    check(all(bool(r0[f"fleet_{n}_ok"]) for n in FLEET_TOL) and bool(r0["fleet_bad_equal"]),
+          f"shard: fleet off: " + ", ".join(f"{n} {float(r0['fleet_' + n]):.3e}" for n in FLEET_TOL))
+    print(f"shard: {SHARD_WORLD} Gloo ranks on {device} ({wall:.1f} s with start-up): 4-DoF graph "
+          f"of {prob['n']} nodes, {len(prob['i'])} edges, {prob['iters']} iterations: "
+          f"{float(r0['graph_ms']):.2f} ms a solve sharded, {float(r0['single_ms']):.2f} ms single "
+          f"(within {max(float(np.abs(r['t_sharded'] - r['t_single']).max()) for r in ranks):.2e}); "
+          f"fleet of {FLEET_B} filled cores, {FLEET_B // SHARD_WORLD} a rank: "
+          f"{float(r0['fleet_ms']):.1f} ms a step sharded (rank 0), {float(r0['whole_ms']):.1f} ms "
+          f"unsharded; largest differences " + ", ".join(
+              f"{n} {float(r0['fleet_' + n]):.3e}" for n in FLEET_TOL)
+          + ". NCCL across cards is not run (one card).", flush=True)
+
+
+def phase_checkpoint(torch, work_dir):
+    counts = phase_checkpoint_cli(torch, work_dir)
+    reloc = phase_checkpoint_reloc(torch, work_dir)
+    phase_checkpoint_shard(torch, work_dir)
+    return {k: counts[k] + reloc[k] for k in counts}
+
+
 # ------------------------------------------------------------------------ main
 
 
@@ -2532,9 +3058,13 @@ def main() -> int:
         phase_map(torch, work_dir)
         line_counts = phase_lines(torch, work_dir, main_times)
         mode_counts = phase_modes(torch, work_dir, main_times)
+        t0 = time.perf_counter()
+        ckpt_counts = phase_checkpoint(torch, work_dir)
+        print(f"checkpoint: phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
         for name, entry in entries.items():
             entry["launches"] = (main_counts[name] + revisit_counts[name] + gnss_counts[name]
-                                 + path_c_counts[name] + line_counts[name] + mode_counts[name])
+                                 + path_c_counts[name] + line_counts[name] + mode_counts[name]
+                                 + ckpt_counts[name])
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(card)
@@ -2546,4 +3076,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-worker"]:
+        rank, world, address, device, out_path, *fleet = sys.argv[2:]
+        shard_worker(int(rank), int(world), address, device, out_path, fleet[0] if fleet else "")
+        sys.exit(0)
     sys.exit(main())

@@ -1,62 +1,55 @@
 """CLI entry: run the full system on a converted sequence directory.
 
     python -m ground_fusion_tpu_torch <config.yaml> <sequence_dir> [out_dir]
-        [--burst K] [--device cuda|cpu]
+        [--burst K] [--device cuda|cpu] [--save-state] [--resume vio_state.npz]
+        [--load-graph pose_graph.npz] [--load-grid grid.pgm]
 
 The ``rosrun vins vins_node config.yaml`` + ``rosbag play`` analog
 (README.md:146-161) for the file-driven dataset layout of
 :mod:`ground_fusion_tpu_torch.io.dataset`. The system runs on the GPU unless
 ``--device cpu`` is given; without a GPU and without that flag it exits with
 an error. ``--burst K`` stages K frames per flush (replay mode, see
-``Config.burst_chunk``; ``--burst 1`` is live mode); a missing or
-non-integer K exits with code 2. GNSS epochs (``gnss.csv``, with
-``iono.csv``) feed the tight coupling when the config enables it; GPS fixes
-(``gps.csv``) feed the global fusion.
+``Config.burst_chunk``; ``--burst 1`` is live mode). GNSS epochs
+(``gnss.csv``, with ``iono.csv``) feed the tight coupling when the config
+enables it; GPS fixes (``gps.csv``) feed the global fusion.
 
-The JAX package's CLI also takes ``--save-state``, ``--resume P``,
-``--load-graph P`` and ``--load-grid P`` (checkpointing, ROADMAP queue 1
-item 7). They are not ported yet: each is refused by name with exit code 2,
-before anything runs."""
+Checkpointing: ``--save-state`` writes ``vio_state.npz`` and
+``pose_graph.npz`` into the output directory at the end (the 's'-key save of
+pose_graph.cpp:1062-1126); ``--resume`` restores a VIO snapshot and replays
+the sequence from the first frame after the snapshot's newest window frame;
+``--load-graph`` loads a prior pose graph for relocalization
+(``load_previous_pose_graph``); ``--load-grid`` a prior occupancy PGM, which
+the run republishes as ``prior_grid.pgm`` (pose_graph_node.cpp:861-901).
+The files are those of the JAX package's CLI. A flag that needs a value and
+has none, or a non-integer K, exits with code 2."""
 
 from __future__ import annotations
 
 import sys
 
-# flags of the JAX package's CLI that this port does not implement yet:
-# flag → ROADMAP queue-1 item that brings it
-UNPORTED_FLAGS = {
-    "--save-state": "7 (checkpoint and sharding)",
-    "--resume": "7 (checkpoint and sharding)",
-    "--load-graph": "7 (checkpoint and sharding)",
-    "--load-grid": "7 (checkpoint and sharding)",
-}
-
 
 def _take_value(argv, flag):
-    """Remove ``flag VALUE`` from ``argv``; (present, value or None)."""
+    """Remove ``flag VALUE`` from ``argv``; (present, value or None). A
+    following ``--flag`` is not taken as the value."""
     if flag not in argv:
         return False, None
     i = argv.index(flag)
-    value = argv[i + 1] if i + 1 < len(argv) else None
-    del argv[i : i + 2]
+    value = argv[i + 1] if i + 1 < len(argv) and not argv[i + 1].startswith("--") else None
+    del argv[i : i + (1 if value is None else 2)]
     return True, value
 
 
 def main(argv=None):
     argv = list(argv if argv is not None else sys.argv[1:])
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in UNPORTED_FLAGS:
-            print(f"{flag} is not ported to ground_fusion_tpu_torch yet "
-                  f"(ROADMAP.md, queue 1, item {UNPORTED_FLAGS[flag]})", file=sys.stderr)
-            return 2
     kw = {}
-    given, device = _take_value(argv, "--device")
-    if given:
-        if device is None:
-            print(__doc__)
-            return 2
-        kw["device"] = device
+    for flag, key in (("--device", "device"), ("--resume", "resume"),
+                      ("--load-graph", "load_graph"), ("--load-grid", "load_grid")):
+        given, value = _take_value(argv, flag)
+        if given:
+            if value is None:
+                print(__doc__)
+                return 2
+            kw[key] = value
     given, burst = _take_value(argv, "--burst")
     if given:
         try:
@@ -64,6 +57,9 @@ def main(argv=None):
         except (TypeError, ValueError):
             print(__doc__)
             return 2
+    if "--save-state" in argv:
+        argv.remove("--save-state")
+        kw["save_state"] = True
     if len(argv) < 2:
         print(__doc__)
         return 2
@@ -90,10 +86,15 @@ def gnss_row_obs(r) -> dict:
     return o
 
 
-def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None, burst: int = 0):
+def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None, burst: int = 0,
+        save_state: bool = False, resume: str | None = None, load_graph: str | None = None,
+        load_grid: str | None = None):
     """The CLI replay loop; returns the finished :class:`GroundFusionSystem`
     (tests and the smoke script assert on its internals afterwards).
-    ``burst`` K > 0 replaces the config's ``burst_chunk``."""
+    ``burst`` K > 0 replaces the config's ``burst_chunk``. With ``resume``
+    the replay starts after the snapshot: every frame and every IMU, wheel,
+    GNSS and GPS row at or before the snapshot's newest window time is
+    skipped, since the restored window already holds them."""
     import dataclasses
 
     import numpy as np
@@ -108,14 +109,24 @@ def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None, burst
         cfg = dataclasses.replace(cfg, burst_chunk=burst)
     seq = Sequence.load(seq_dir)
     sys_ = GroundFusionSystem(cfg, out_dir, device=device)
+    if resume or load_graph or load_grid:
+        sys_.load_checkpoint(graph_path=load_graph, state_path=resume, grid_path=load_grid)
     if seq.iono is not None and sys_.estimator.gnss is not None:
         # broadcast Klobuchar parameters (inputIonoParams,
         # rosNodeTest.cpp:203-210) — converted bags carry them in iono.csv
         sys_.estimator.gnss.iono_paras = list(seq.iono)
 
     imu_i = wheel_i = gnss_i = gps_i = 0
+    t_resume = -np.inf
+    if resume and sys_.estimator.ts:
+        t_resume = sys_.estimator.ts[-1]
+        after = lambda rows: 0 if rows is None else int(np.searchsorted(rows[:, 0], t_resume,
+                                                                        side="right"))
+        imu_i, wheel_i, gnss_i, gps_i = (after(r) for r in (seq.imu, seq.wheel, seq.gnss, seq.gps))
     for k, frame in enumerate(seq.frames):
         t, img_path, dep_path = frame[0], frame[1], frame[2]
+        if t <= t_resume:
+            continue
         right_path = frame[3] if len(frame) > 3 else None
         if seq.gps is not None:
             # NavSatFix fixes feed the loose global-fusion layer
@@ -151,7 +162,7 @@ def run(cfg_path: str, seq_dir: str, out_dir: str = "output", device=None, burst
         if pose is not None and k % 10 == 0:
             print(f"frame {k}/{len(seq.frames)}  t={t:.2f}  "
                   f"p=[{pose[0]:.2f},{pose[1]:.2f},{pose[2]:.2f}]")
-    out = sys_.finish()
+    out = sys_.finish(save_state=save_state)
     print(f"trajectory written to {out}")
     if seq.gt is not None:
         est = np.loadtxt(out, ndmin=2)

@@ -22,8 +22,10 @@ copy per dtype family), runs K ingest-and-step iterations on the device
 (``estimator.step.make_window_burst_ingest``) and makes one packed fetch of
 the poses, speed/bias vectors, failure flags and post-chunk mirror tables.
 
-Checkpointing of the JAX package is not ported, and the sensor queues are
-plain Python lists (the C++ ring-buffer ingest is not ported yet).
+The estimator snapshots to and resumes from an npz archive in the JAX
+package's format (:meth:`Estimator.save_state`, :meth:`Estimator.load_state`).
+The sensor queues are plain Python lists (the C++ ring-buffer ingest is not
+ported yet).
 """
 
 from __future__ import annotations
@@ -988,6 +990,82 @@ class Estimator:
         self._burst_xs, self._burst_meta = [], []
         self._mirror_synced = False
         self.reboots += 1
+
+    # -------------------------------------------------------- checkpointing
+
+    def save_state(self, path: str) -> None:
+        """Snapshot the estimator: the device core and the host bookkeeping
+        (slot maps, window timestamps, mode, trajectory, GNSS anchor and
+        track counts) in the JAX package's archive format, so that a later
+        process resumes mid-sequence instead of re-initializing. In burst
+        mode, :meth:`flush_burst` first (``GroundFusionSystem`` does)."""
+        from .utils.checkpoint import core_to_arrays
+
+        if self._burst_xs:
+            raise RuntimeError(f"save_state: {len(self._burst_xs)} staged burst frames "
+                               "are not flushed; call flush_burst() first")
+        out = core_to_arrays(self.core, "core.")
+        out.update(
+            solver_flag=np.int64(self.solver_flag),
+            frame_count=np.int64(self.frame_count),
+            ts=np.asarray(self.ts, np.float64),
+            slot_keys=np.asarray(list(self.slot_of.keys()), np.int64),
+            slot_vals=np.asarray(list(self.slot_of.values()), np.int64),
+            free_slots=np.asarray(self.free_slots, np.int64),
+            line_slot_keys=np.asarray(list(self.line_slot_of.keys()), np.int64),
+            line_slot_vals=np.asarray(list(self.line_slot_of.values()), np.int64),
+            free_line_slots=np.asarray(self.free_line_slots, np.int64),
+            gnss_aligned=np.bool_(self.gnss_aligned),
+            traj_t=np.asarray([t for t, _ in self.trajectory], np.float64),
+            traj_p=(np.stack([np.asarray(p, np.float64) for _, p in self.trajectory])
+                    if self.trajectory else np.zeros((0, 7))),
+            keyframe_flags=np.asarray(self.keyframe_flags, bool),
+        )
+        if self.gnss is not None:
+            if self.gnss.anc0 is not None:
+                out["gnss_anc0"] = np.asarray(self.gnss.anc0, np.float64)
+            out["gnss_track_keys"] = np.asarray(list(self.gnss.track_count.keys()), np.int64)
+            out["gnss_track_vals"] = np.asarray(list(self.gnss.track_count.values()), np.int64)
+        np.savez_compressed(path, **out)
+
+    def load_state(self, path: str) -> None:
+        """Restore a :meth:`save_state` snapshot (of either package). The
+        core takes this estimator's dtypes and device; the config must match
+        the one that saved (same table shapes, same enabled blocks). The
+        previous frame's features, the IMU-rate prediction, the staged burst
+        and the host mirrors are not persisted and start empty, so the first
+        frame after a resume is a keyframe."""
+        from .utils.checkpoint import core_from_arrays
+
+        with np.load(path, allow_pickle=False) as archive:
+            data = {k: archive[k] for k in archive.files}
+        self.core = core_from_arrays(data, self.core, "core.")
+        self.solver_flag = int(data["solver_flag"])
+        self.frame_count = int(data["frame_count"])
+        self.ts = [float(t) for t in data["ts"]]
+        self.slot_of = {int(k): int(v) for k, v in zip(data["slot_keys"], data["slot_vals"])}
+        self.free_slots = [int(s) for s in data["free_slots"]]
+        self.line_slot_of = {int(k): int(v) for k, v in
+                             zip(data["line_slot_keys"], data["line_slot_vals"])}
+        self.free_line_slots = [int(s) for s in data["free_line_slots"]]
+        self.gnss_aligned = bool(data["gnss_aligned"])
+        self.trajectory = [(float(t), np.array(p, np.float64))
+                           for t, p in zip(data["traj_t"], data["traj_p"])]
+        self.keyframe_flags = [bool(b) for b in data["keyframe_flags"]]
+        if self.gnss is not None:
+            if "gnss_anc0" in data:
+                self.gnss.set_anchor(data["gnss_anc0"])
+            if "gnss_track_keys" in data:
+                self.gnss.track_count = {int(k): int(v) for k, v in
+                                         zip(data["gnss_track_keys"], data["gnss_track_vals"])}
+            self._anc_delta = self.core.state.anc_ecef.cpu().numpy().astype(np.float64)
+        self._prev_feats = {}
+        self._fp = None
+        self._fp_seed = None
+        self._last_sb = None
+        self._last_out_failed = None
+        self._burst_xs, self._burst_meta = [], []
+        self._mirror_synced = False
 
     # ------------------------------------------------------------------ GNSS
 

@@ -10,12 +10,15 @@ pub/sub (SURVEY §2 parallelism table). With ``use_line`` a line tracker
 feeds segment observations to the estimator beside the point features. With
 ``burst_chunk`` K the estimator stages K frames per flush and the post-solve
 hooks (calibration dump, loop keyframes, the map, GPS fusion, telemetry)
-drain from the trajectory at each flush. The detector of the JAX package is
-not ported yet; a config that turns it on raises at construction.
+drain from the trajectory at each flush. ``save_checkpoint`` writes the
+estimator's snapshot and the pose graph; ``load_checkpoint`` resumes from
+them and from a prior occupancy grid. The detector of the JAX package is not
+ported yet; a config that turns it on raises at construction.
 
 Run from a dataset directory::
 
     python -m ground_fusion_tpu_torch <config.yaml> <sequence_dir> [out_dir] [--burst K]
+        [--save-state] [--resume P] [--load-graph P] [--load-grid P]
 """
 
 from __future__ import annotations
@@ -102,6 +105,7 @@ class GroundFusionSystem:
                     depth_max=cfg.tracker.depth_max, device=self.device,
                 )
         self.global_fusion = None     # built by the first GPS fix
+        self.prior_grid = None        # a loaded prior occupancy grid (load_checkpoint)
 
         self.stats = StageStats()
         self.calib_dump = CalibrationDump(out_dir)
@@ -500,13 +504,69 @@ class GroundFusionSystem:
                     self._integrate_tsdf(depth.to(torch.float32), color.to(torch.float32),
                                          cam_pose)
 
+    # --------------------------------------------------------- checkpointing
+
+    def save_checkpoint(self, dir_: Optional[str] = None) -> None:
+        """Write the estimator snapshot and the pose graph (the 's'-key save
+        of pose_graph.cpp:1062-1126, plus the VIO window state the reference
+        cannot persist): ``vio_state.npz`` and, with loop closure,
+        ``pose_graph.npz``. In burst mode the staged frames are flushed and
+        their post-solve hooks run first."""
+        from .utils.checkpoint import save_pose_graph
+
+        d = dir_ or self.out_dir
+        os.makedirs(d, exist_ok=True)
+        if self._burst:
+            self.estimator.flush_burst()
+            self._drain_burst_hooks()
+        self.estimator.save_state(os.path.join(d, "vio_state.npz"))
+        if self.pose_graph is not None:
+            save_pose_graph(os.path.join(d, "pose_graph.npz"), self.pose_graph)
+
+    def load_checkpoint(self, graph_path: Optional[str] = None,
+                        state_path: Optional[str] = None,
+                        grid_path: Optional[str] = None) -> None:
+        """Resume from saved artifacts: a prior pose graph (relocalization
+        against loaded keyframes — ``load_previous_pose_graph``,
+        pose_graph.cpp:1127-1267; new keyframes continue its indices), a VIO
+        state snapshot, and/or a prior occupancy grid
+        (pose_graph_node.cpp:861-901), each on this system's device.
+
+        After a state load the trackers hand out ids above every restored
+        one: the snapshot's slot maps key landmarks by feature and line id,
+        and a fresh tracker counting from 0 would write its new features
+        into the slots of other landmarks."""
+        if graph_path is not None:
+            from .utils.checkpoint import load_pose_graph
+
+            if self.pose_graph is None:
+                raise ValueError("loop closure disabled: enable cfg.loop "
+                                 "to load a prior pose graph")
+            load_pose_graph(graph_path, self.pose_graph)
+            self._kf_index = max((k.index for k in self.pose_graph.kfs), default=-1) + 1
+        if state_path is not None:
+            est = self.estimator
+            est.load_state(state_path)
+            self.tracker.next_id = max([self.tracker.next_id, *(k + 1 for k in est.slot_of)])
+            if self.line_tracker is not None:
+                self.line_tracker._next_id = max(
+                    [self.line_tracker._next_id, *(k + 1 for k in est.line_slot_of)])
+        if grid_path is not None:
+            from .global_layers.dense_map import OccupancyGrid2D
+
+            self.prior_grid = OccupancyGrid2D.load_pgm(grid_path, device=self.device)
+
     # --------------------------------------------------------------- output
 
-    def finish(self):
+    def finish(self, save_state: bool = False):
+        """Flush, then write the run's outputs into ``out_dir``; with
+        ``save_state`` also the checkpoint (:meth:`save_checkpoint`)."""
         est = self.estimator
         if self._burst:
             est.flush_burst()
             self._drain_burst_hooks()
+        if save_state:
+            self.save_checkpoint()
         est.write_tum(os.path.join(self.out_dir, "vio.txt"))
         if self.pose_graph is not None:
             self.pose_graph.write_tum(os.path.join(self.out_dir, "loop.txt"))
@@ -531,6 +591,10 @@ class GroundFusionSystem:
         if self.tsdf is not None:
             self.tsdf.save_mesh_ply(os.path.join(self.out_dir, "mesh.ply"),
                                     smooth_radius=self.cfg.map.mls_radius_m)
+        if self.prior_grid is not None:
+            # republish the loaded prior occupancy map into this run's output
+            # set (the latched prior-map republish, pose_graph_node.cpp:861-901)
+            self.prior_grid.save_pgm(os.path.join(self.out_dir, "prior_grid.pgm"))
         self.dead_reckoning.write_tum(
             os.path.join(self.out_dir, "pure_imu.txt"),
             os.path.join(self.out_dir, "pure_wheel.txt"),

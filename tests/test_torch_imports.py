@@ -181,31 +181,32 @@ def test_use_line_config_builds_with_lines(tmp_path):
     assert int(est.core.lines.active.sum()) == 2 and int(est.core.lines.obs_valid[:, 0].sum()) == 2
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--burst", "8"], "6"), (["--save-state"], "7"), (["--resume", "vio_state.npz"], "7"),
-    (["--load-graph", "pose_graph.npz"], "7"), (["--load-grid", "grid.pgm"], "7")],
+@pytest.mark.parametrize("flag,kw", [
+    (["--burst", "8"], {"burst": 8}), (["--save-state"], {"save_state": True}),
+    (["--resume", "vio_state.npz"], {"resume": "vio_state.npz"}),
+    (["--load-graph", "pose_graph.npz"], {"load_graph": "pose_graph.npz"}),
+    (["--load-grid", "grid.pgm"], {"load_grid": "grid.pgm"})],
     ids=["burst", "save-state", "resume", "load-graph", "load-grid"])
-def test_cli_refuses_unported_flags_by_name(flag, item, monkeypatch, capsys):
-    """The JAX package's CLI flags that the port lacks are refused by name,
-    with the ROADMAP item that brings them and exit code 2, before anything
-    runs — never read as the output directory. ``--burst K`` is ported: it
-    reaches ``run(burst=K)``, and without an integer K it exits with 2."""
+def test_cli_flags_reach_run(flag, kw, monkeypatch):
+    """The JAX package's CLI flags are all ported: each reaches ``run`` with
+    its keyword, never read as the output directory; a flag that needs a
+    value and has none (or a non-integer K) exits with 2 before anything
+    runs."""
     from ground_fusion_tpu_torch import __main__ as cli
 
     ran = []
     monkeypatch.setattr(cli, "run", lambda *a, **k: ran.append((a, k)))
-    if flag[0] == "--burst":
-        assert cli.main(["cfg.yaml", "seq", "out", *flag, "--device", "cpu"]) == 0
-        assert ran == [(("cfg.yaml", "seq", "out"), {"device": "cpu", "burst": 8})]
-        assert cli.main(["cfg.yaml", "seq", "out", "--burst"]) == 2
-        assert cli.main(["cfg.yaml", "seq", "--burst", "x"]) == 2
-        assert len(ran) == 1
-        return
-    assert cli.main(["cfg.yaml", "seq", *flag]) == 2
-    assert cli.main(["cfg.yaml", "seq", "out", *flag, "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert flag[0] in err and f"item {item}" in err
-    assert ran == []
+    assert cli.main(["cfg.yaml", "seq", "out", *flag, "--device", "cpu"]) == 0
+    assert ran == [(("cfg.yaml", "seq", "out"), {"device": "cpu", **kw})]
+    assert cli.main(["cfg.yaml", "seq", *flag]) == 0
+    assert ran[-1] == (("cfg.yaml", "seq", "output"), kw)
+    if len(flag) == 2:
+        assert cli.main(["cfg.yaml", "seq", "out", flag[0]]) == 2
+        assert cli.main(["cfg.yaml", "seq", "out", flag[0], "--device", "cpu"]) == 2
+        if flag[0] == "--burst":
+            assert cli.main(["cfg.yaml", "seq", "--burst", "x"]) == 2
+        assert len(ran) == 2
+    ran.clear()
     assert cli.main(["cfg.yaml", "seq", "out", "--device", "cpu"]) == 0
     assert ran == [(("cfg.yaml", "seq", "out"), {"device": "cpu"})]
 
