@@ -135,10 +135,31 @@ Phases (any failure ends the run with a non-zero exit code):
               float64, and the sharded fleet of 11c (2 cores a rank) against
               the unsharded fleet at ``tests/test_burst.py``'s tolerances;
               ms per solve and per fleet step. NCCL across cards is not run.
+13. dynamic objects and cameras — (b) phase 4's drive cut to 24 frames with
+              the checker object of ``tests/test_detector_e2e.py`` (32 px,
+              a false depth of 1.2 m, ~1 px a frame, on a mid-grey
+              backdrop) walking in at frame 4, through ``__main__.run`` with
+              ``use_yolo: true``: the object's features reach the tracker
+              (≥ 5 on some frame) and at most 0.2 of them the estimator,
+              ATE, no reboot, the detector's weights on the GPU, one
+              ``lk_track`` launch per tracked frame; ``detect`` ms beside
+              ``track`` and ``solve``. (a) The shipped detector weights on
+              the card against the CPU on 10 scenes of the training
+              renderer and two frames of (b): features within 2e-2 of their
+              scale, detections equal away from the thresholds, recall
+              ≥ 0.7 at IoU 0.3; ms per ``detect`` (CUDA events), device ms
+              under ``torch.profiler``, peak memory. (c) The five camera
+              models' lift and project of 1000 pixels in float64 on the card
+              against the CPU (1e-9) and round trips within 1e-3 px; the
+              five calibrations of ``tests/test_calibration.py`` on the card
+              in float64 within the oracles' bounds, ms each; phase 4's
+              scene rendered through the equidistant model (20 frames) and
+              run with ``camera.model: equidistant``: ATE, one ``lk_track``
+              launch per tracked frame.
 Then the card's line, the ``{"kernels": [...]}`` line (one entry per kernel
 entry point: ``lk_level``, ``lk_track``, ``hamming_matrix``,
 ``hamming_match``; launches counted on the paths of phases 4, 5, 7, 8, 10,
-11 and 12), and the last line ``{"ok": true, "device": {...}}``.
+11, 12 and 13), and the last line ``{"ok": true, "device": {...}}``.
 
 The script imports only the port (never JAX or the JAX package), needs no
 network, and starts no process that outlives it (phase 12c's two ranks are
@@ -927,7 +948,7 @@ def phase_main(torch, work_dir):
     cfg_path = _loop_config(work_dir)
     seq = os.path.join(work_dir, "seq")
     out = os.path.join(work_dir, "out")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     render_smoke_sequence(seq)
     print(f"rendered {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -994,7 +1015,9 @@ def phase_main(torch, work_dir):
           f"over {stats.counts['loop']} keyframes")
     print(f"main path: {N_FRAMES / wall:.3f} frames/s ({wall:.1f} s wall for {N_FRAMES} frames, "
           f"image loading and keyframe description included), launches {counts}", flush=True)
-    return counts, stage_times(stats)
+    times = stage_times(stats)
+    times["phase_s"] = time.perf_counter() - t_start     # rendering included, as phase 13's
+    return counts, times
 
 
 # --------------------------------------------------------------------------- 5
@@ -3036,6 +3059,621 @@ def phase_checkpoint(torch, work_dir):
     return {k: counts[k] + reloc[k] for k in counts}
 
 
+# -------------------------------------------------------------------------- 13
+#
+# Dynamic objects and the other cameras. 13b composites the checker object of
+# tests/test_detector_e2e.py (32 px, the top of the detector's training size
+# range, carrying a false depth) onto phase 4's drive. It walks into view at
+# frame DYN_OBJ_FIRST, once the tracker holds its features on the scene: the
+# refill ranks the checker's corners above every blob (and its equal-score
+# plateaus pass the min-distance suppression), so an object there from the
+# first frame would take every feature slot.
+
+DET_SEED = 99
+DET_SCENES = 10
+DET_CONF = 0.3               # tests/test_detector.py's threshold for its recall
+DET_RECALL = 0.7
+DET_IOU = 0.3
+# bfloat16 convolutions: features agree to 2e-2 of their largest magnitude.
+# XLA's own jitted and eager backbones differ by 0.03125 at features of ~2.6
+# (two roundings in bfloat16), ~1 % of that scale (CPU, tests/test_torch_detector.py)
+DET_FEAT_TOL = 2e-2
+DET_SCORE_MARGIN = 0.02      # a detection this close to a threshold may flip by rounding
+DET_BOX_TOL_PX = 1.0
+DET_REPS = 20
+DYN_FRAMES = 24
+DYN_OBJ = 32
+DYN_OBJ_DEPTH = 1.2
+DYN_OBJ_TONE = (0.9, 0.85, 0.8)
+DYN_OBJECT = (276.0, 196.0)  # its top-left corner at frame 0
+DYN_OBJ_STEP = (1.0, 0.5)    # px a frame
+DYN_OBJ_FIRST = 4
+DYN_HALO = (128.0, 16.0)     # mid-grey level and fall-off (px) of the backdrop around it
+DYN_MIN_OBJ_FEATS = 5        # tests/test_detector_e2e.py:143-144
+DYN_MAX_PASSED = 0.2
+CAM_PIXELS = 1000
+CAM_SEED = 0
+CAM_ROUND_TRIP_PX = 1e-3     # tests/test_cameras.py:129
+CAM_F64_TOL = 1e-9
+EQUI_DISTORTION = (-0.01, 0.004, -0.002, 0.0005)    # tests/test_cameras.py:152-153
+EQUI_FRAMES = 20
+
+
+def camera_cases(np):
+    """(model, distortion) of each dispatched model at the oracle's
+    distortions (tests/test_cameras.py:117-122); Scaramuzza's pair of
+    polynomials from :func:`scaramuzza_distortion`."""
+    return [("pinhole", (-0.28, 0.07, 2e-4, -2e-5)),
+            ("pinhole_full", (-0.3, 0.09, 1e-3, -2e-4, 0.0, 0.0, 2e-4, -1e-4)),
+            ("mei", (0.9, -0.2, 0.05, 1e-4, -1e-4)),
+            ("equidistant", EQUI_DISTORTION),
+            ("scaramuzza", scaramuzza_distortion(np, 460.0))]
+
+
+def scaramuzza_distortion(np, f: float, deg: int = 12):
+    """A self-consistent OCam model for the dispatch layout (a0..a4, then the
+    world2cam inverse polynomial): the cam2world polynomial
+    z(ρ) = f − ρ²/(3f), and its inverse ρ(θ) fitted to degree ``deg`` by
+    least squares in ψ = π/2 − θ over the field to ρ = 450 px, then carried
+    to the θ basis exactly (binomial expansion)."""
+    from math import comb
+
+    poly = np.array([f, 0.0, -1.0 / (3.0 * f), 0.0, 0.0])
+    rho = np.linspace(0.0, 450.0, 4000)
+    psi = np.pi / 2 - np.arctan2(np.polyval(poly[::-1], rho), rho)
+    b = np.linalg.lstsq(np.vander(psi, deg + 1, increasing=True), rho, rcond=None)[0]
+    m = np.zeros((deg + 1, deg + 1))
+    for k in range(deg + 1):
+        for j in range(k + 1):
+            m[j, k] = comb(k, j) * (np.pi / 2) ** (k - j) * (-1.0) ** j
+    return tuple(poly) + tuple(m @ b)
+
+
+def camera_round_trips(torch, device, dtype, n: int = CAM_PIXELS, seed: int = CAM_SEED):
+    """Each model's lift and project at ``n`` seeded pixels (the oracle's
+    range, tests/test_cameras.py:114) on ``device`` in ``dtype``:
+    {model: (rays [n,3], pixels again [n,2])} on the host, and the pixels."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.cameras.models import make_camera
+
+    uv = np.random.default_rng(seed).uniform([100, 80], [540, 400], (n, 2))
+    out = {}
+    for name, dist in camera_cases(np):
+        cam = make_camera(name, 460.0, 459.0, 320.0, 240.0, dist, dtype=dtype, device=device)
+        rays = cam.lift_projective(torch.as_tensor(uv, dtype=dtype, device=device))
+        rays = rays / rays[..., 2:3]
+        out[name] = (rays.cpu().numpy(), cam.space_to_plane(rays).cpu().numpy())
+    return out, uv
+
+
+def _calib_board():
+    import numpy as np
+
+    xs, ys = np.meshgrid(np.arange(8), np.arange(6))
+    return np.stack([xs.reshape(-1), ys.reshape(-1)], -1).astype(float) * 0.04
+
+
+def calibration_views(project, gt, n_views=10, seed=11, noise=0.1, z0=0.6):
+    """tests/test_calibration.py's synthetic board views, through the port's
+    own projection in float64 on the CPU: (board [N,2], [V × [N,2]])."""
+    import numpy as np
+    import torch
+
+    from ground_fusion_tpu_torch.geometry.so3 import quat_exp, quat_rotate
+
+    world = _calib_board()
+    pts_w = torch.as_tensor(np.concatenate([world, np.zeros((len(world), 1))], 1))
+    rng = np.random.default_rng(seed)
+    img_pts = []
+    for _ in range(n_views):
+        q = quat_exp(torch.as_tensor(rng.normal(0, 0.25, 3)))
+        t = np.array([-0.16, -0.12, z0]) + rng.normal(0, 0.05, 3)
+        uv = project(gt, quat_rotate(q, pts_w) + torch.as_tensor(t)).numpy()
+        img_pts.append(uv + rng.normal(0, noise, uv.shape))
+    return world, img_pts
+
+
+def calibration_cases():
+    """(model, truth, projection, view keywords, LM iterations) of the five
+    oracles of tests/test_calibration.py, in float64 on the CPU."""
+    import numpy as np
+    import torch
+
+    from ground_fusion_tpu_torch.cameras import calibration as cal
+    from ground_fusion_tpu_torch.cameras import models as m
+
+    f64 = dict(dtype=torch.float64, device="cpu")
+    return [
+        ("pinhole", m.PinholeParams.make(455.0, 458.0, 322.0, 243.0, -0.28, 0.07, 0.0002, -0.0001,
+                                         **f64), m.pinhole_space_to_plane, dict(n_views=8), 25),
+        ("equidistant", m.EquidistantParams.make(310.0, 312.0, 318.0, 242.0, k2=-0.01, k3=0.004,
+                                                 **f64), m.equidistant_space_to_plane, {}, 40),
+        ("mei", m.MeiParams.make(0.9, 620.0, 624.0, 320.0, 240.0, k1=-0.2, k2=0.05, **f64),
+         m.mei_space_to_plane, dict(n_views=12, z0=0.5), 60),
+        ("pinhole_full", m.PinholeFullParams.make(455.0, 458.0, 322.0, 243.0, k1=-0.30, k2=0.09,
+                                                  k4=-0.05, p1=0.0003, p2=-0.0002, **f64),
+         m.pinhole_full_space_to_plane, {}, 40),
+        ("scaramuzza", m.ScaramuzzaParams.make(
+            [0.0] * 5, cal._PSI2THETA @ np.array([0.0, 300.0, -25.0, 10.0, 0.0, 0.0]),
+            c=1.002, d=0.001, e=-0.002, cx=322.0, cy=238.0, **f64),
+         cal.scaramuzza_project_zfwd, {}, 120),
+    ]
+
+
+def calibration_errors(name, gt, project, res) -> list:
+    """The oracle's recovery checks for ``res`` (tests/test_calibration.py:
+    38-43, 98-123, 140-153, 171-184, 213-249) as a list of messages, empty
+    when all hold."""
+    import numpy as np
+    import torch
+
+    from ground_fusion_tpu_torch.cameras.models import (
+        scaramuzza_lift_projective,
+        scaramuzza_space_to_plane_zfwd,
+    )
+
+    p = type(res.params)(*[v.detach().cpu().double() for v in res.params])
+    bad = []
+    if not res.rms_px < 0.3:
+        bad.append(f"rms {res.rms_px:.3f} px")
+    near = {"pinhole": (2.0, ("fx", "fy", "cx", "cy")), "equidistant": (3.0, ("fx", "fy", "cx", "cy")),
+            "scaramuzza": (3.0, ("cx", "cy"))}
+    if name in near:
+        tol, fields = near[name]
+        for k in fields:
+            if not abs(float(getattr(p, k)) - float(getattr(gt, k))) < tol:
+                bad.append(f"{k} {float(getattr(p, k)):.3f} against {float(getattr(gt, k)):.3f}")
+    if name == "pinhole":
+        if not abs(float(p.k1) + 0.28) < 0.02:
+            bad.append(f"k1 {float(p.k1):.4f}")
+        return bad
+    rng = np.random.default_rng({"equidistant": 5, "mei": 3, "pinhole_full": 7, "scaramuzza": 6}[name])
+    rays = torch.as_tensor(np.concatenate([rng.uniform(-0.3, 0.3, (200, 2)), np.ones((200, 1))], 1))
+    uv_gt = project(gt, rays).numpy()
+    uv_cal = project(p, rays).numpy()
+    if name != "scaramuzza":
+        gap = uv_cal - uv_gt
+        err = np.linalg.norm(gap - gap.mean(0), axis=1)
+        if not np.median(err) < 0.5:
+            bad.append(f"median reprojection gap {np.median(err):.3f} px")
+        if not np.linalg.norm(gap.mean(0)) < 2.0:
+            bad.append(f"principal-point gauge {np.linalg.norm(gap.mean(0)):.3f} px")
+        return bad
+    if not float(p.c) > 0:
+        bad.append("reflection gauge not canonicalized")
+    a = uv_cal - uv_cal.mean(0)
+    b = uv_gt - uv_gt.mean(0)
+    u, _, vt = np.linalg.svd(a.T @ b)
+    r2 = u @ np.diag([1.0, np.sign(np.linalg.det(u @ vt))]) @ vt
+    s = float(np.sum(a * (b @ r2.T)) / np.sum(b * b))
+    if not abs(s - 1.0) < 0.04:
+        bad.append(f"radial scale gauge {s:.3f}")
+    err = np.linalg.norm(a - s * (b @ r2.T), axis=1)
+    if not np.median(err) < 0.5:
+        bad.append(f"median reprojection gap {np.median(err):.3f} px")
+    if not np.linalg.norm(uv_cal.mean(0) - uv_gt.mean(0)) < 3.0:
+        bad.append("principal-point gauge")
+    uv = scaramuzza_space_to_plane_zfwd(p, scaramuzza_lift_projective(p, torch.as_tensor(uv_cal)))
+    rt = np.linalg.norm(uv.numpy() - uv_cal, axis=1)
+    if not np.median(rt) < 0.5:
+        bad.append(f"lift/project round trip {np.median(rt):.3f} px")
+    return bad
+
+
+def composite_object(np, img, depth, k: int):
+    """Frame ``k`` of the drive: ``img`` [H,W] grey → [H,W,3], with the
+    checker object pasted in from frame ``DYN_OBJ_FIRST`` on, its pixels
+    carrying ``DYN_OBJ_DEPTH``. The object stands on a mid-grey backdrop that
+    fades into the dark frame (a Gaussian fall-off of its distance to the
+    object): the detector was trained on mid-grey scenes, as the oracle's
+    frames are, and phase 4's near-black background lies outside them.
+    Returns (image, depth)."""
+    rgb = np.repeat(np.asarray(img, np.float32)[..., None], 3, -1)
+    depth = np.asarray(depth, np.float32).copy()
+    if k < DYN_OBJ_FIRST:
+        return rgb, depth
+    yy, xx = np.mgrid[0:DYN_OBJ, 0:DYN_OBJ]
+    checker = (((yy // 4) + (xx // 4)) % 2).astype(np.float32)
+    patch = (255.0 * checker)[..., None] * np.array(DYN_OBJ_TONE, np.float32)
+    x0 = int(round(DYN_OBJECT[0] + DYN_OBJ_STEP[0] * k))
+    y0 = int(round(DYN_OBJECT[1] + DYN_OBJ_STEP[1] * k))
+    ys, xs = np.mgrid[0 : rgb.shape[0], 0 : rgb.shape[1]]
+    dx = np.maximum(np.maximum(x0 - xs, xs - (x0 + DYN_OBJ - 1)), 0)
+    dy = np.maximum(np.maximum(y0 - ys, ys - (y0 + DYN_OBJ - 1)), 0)
+    level, fall = DYN_HALO
+    halo = (level * np.exp(-(dx * dx + dy * dy) / (2.0 * fall * fall))).astype(np.float32)
+    rgb = np.maximum(rgb, halo[..., None])
+    rgb[y0 : y0 + DYN_OBJ, x0 : x0 + DYN_OBJ] = patch
+    depth[y0 : y0 + DYN_OBJ, x0 : x0 + DYN_OBJ] = DYN_OBJ_DEPTH
+    return rgb, depth
+
+
+def render_dynamic_sequence(seq_dir: str, n_frames: int = DYN_FRAMES, source: str = None) -> str:
+    """Phase 4's drive cut to ``n_frames``, with the moving checker object
+    composited in (RGB images). ``source``: phase 4's rendered sequence, whose
+    first frames and sensor files are taken instead of rendering them again
+    (the same seed gives the same frames)."""
+    import numpy as np
+
+    if source is None:
+        from ground_fusion_tpu_torch.config import load_yaml
+        from ground_fusion_tpu_torch.sim.render import Mounts, render_sequence
+        from ground_fusion_tpu_torch.sim.synthetic import SimParams
+
+        cfg = load_yaml(CONFIG_PATH)
+        cam = cfg.camera
+        render_sequence(seq_dir, n_frames, cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+                        sp=SimParams(**SMOKE_SIM), n_landmarks=SMOKE_LANDMARKS, seed=SMOKE_SEED,
+                        mounts=Mounts.from_config(cfg))
+        source = seq_dir
+    else:
+        os.makedirs(os.path.join(seq_dir, "img"), exist_ok=True)
+        for name in ("imu.csv", "wheel.csv", "gt.csv"):
+            shutil.copy(os.path.join(source, name), seq_dir)
+        with open(os.path.join(source, "frames.csv")) as src:
+            rows = [r for r in src if r.strip()][:n_frames]
+        with open(os.path.join(seq_dir, "frames.csv"), "w") as dst:
+            dst.writelines(rows)
+    for k in range(n_frames):
+        ip, dp = (os.path.join("img", f"{k:05d}{x}.npy") for x in ("", "_d"))
+        rgb, depth = composite_object(np, np.load(os.path.join(source, ip)),
+                                      np.load(os.path.join(source, dp)), k)
+        np.save(os.path.join(seq_dir, ip), rgb)
+        np.save(os.path.join(seq_dir, dp), depth)
+    return seq_dir
+
+
+def _config_with(work_dir: str, name: str, replace=(), extra: str = "") -> str:
+    """A copy of ``configs/groundchallenge.yaml`` with lines replaced and
+    ``extra`` appended, in the work directory."""
+    with open(CONFIG_PATH) as src:
+        text = src.read()
+    for old, new in replace:
+        check(old in text, f"config: {old!r} not in {CONFIG_PATH}")
+        text = text.replace(old, new)
+    path = os.path.join(work_dir, name)
+    with open(path, "w") as dst:
+        dst.write(text.rstrip("\n") + "\n" + extra)
+    return path
+
+
+def yolo_config(work_dir: str) -> str:
+    """``configs/groundchallenge.yaml`` with ``use_yolo: true``."""
+    return _config_with(work_dir, "groundchallenge_yolo.yaml",
+                        replace=(("use_yolo: false", "use_yolo: true"),))
+
+
+def equidistant_config(work_dir: str) -> str:
+    """``configs/groundchallenge.yaml`` with ``camera.model: equidistant`` and
+    the oracle's distortion, at the config's intrinsics."""
+    return _config_with(work_dir, "groundchallenge_equidistant.yaml", replace=(
+        ("model: pinhole", "model: equidistant"),
+        ("distortion: [0.0, 0.0, 0.0, 0.0]",
+         "distortion: [" + ", ".join(repr(v) for v in EQUI_DISTORTION) + "]")))
+
+
+class ObjectProbe:
+    """Counts, per frame, the features on the object (its false depth)
+    that the tracker returns and that reach ``Estimator.input_frame``: wraps
+    both methods on their classes and puts them back on ``close``."""
+
+    def __init__(self):
+        from ground_fusion_tpu_torch.frontend.tracker import FeatureTracker
+        from ground_fusion_tpu_torch.pipeline import Estimator
+
+        self.classes = (FeatureTracker, Estimator)
+        self.tracked, self.passed = [], []
+        self._track, self._input = FeatureTracker.track, Estimator.input_frame
+        probe = self
+
+        def on_object(feats):
+            return sum(1 for f in feats.values() if abs(f.depth - DYN_OBJ_DEPTH) < 1e-4)
+
+        def track(tracker, *a, **k):
+            feats = probe._track(tracker, *a, **k)
+            probe.tracked.append(on_object(feats))
+            return feats
+
+        def input_frame(est, t, feats, *a, **k):
+            probe.passed.append(on_object(feats))
+            return probe._input(est, t, feats, *a, **k)
+
+        FeatureTracker.track, Estimator.input_frame = track, input_frame
+
+    def close(self):
+        self.classes[0].track, self.classes[1].input_frame = self._track, self._input
+
+
+def run_dynamic(torch, work_dir, device=None, n_frames: int = DYN_FRAMES, source=None):
+    """Render the drive with the object (from phase 4's sequence ``source``
+    if given) and run it through ``__main__.run`` with ``use_yolo``; returns
+    (system, sequence, output, probe, wall s)."""
+    from ground_fusion_tpu_torch.__main__ import run
+
+    seq = render_dynamic_sequence(os.path.join(work_dir, "yolo_seq"), n_frames, source)
+    out = os.path.join(work_dir, "yolo_out")
+    probe = ObjectProbe()
+    try:
+        t0 = time.perf_counter()
+        system = run(yolo_config(work_dir), seq, out, device=device)
+        if system.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        probe.close()
+    return system, seq, out, probe, wall
+
+
+def run_equidistant(torch, work_dir, device=None, n_frames: int = EQUI_FRAMES):
+    """Phase 4's scene rendered through the equidistant model at the
+    config's intrinsics and run through ``__main__.run`` with
+    ``camera.model: equidistant``; returns (system, sequence, output, wall s)."""
+    from ground_fusion_tpu_torch.__main__ import run
+    from ground_fusion_tpu_torch.cameras.models import make_camera
+    from ground_fusion_tpu_torch.config import load_yaml
+    from ground_fusion_tpu_torch.sim.render import Mounts, render_sequence
+    from ground_fusion_tpu_torch.sim.synthetic import SimParams
+
+    cfg_path = equidistant_config(work_dir)
+    cfg = load_yaml(cfg_path)
+    c = cfg.camera
+    camera = make_camera(c.model, c.fx, c.fy, c.cx, c.cy, c.distortion, dtype=torch.float64,
+                         device="cpu")
+    seq = render_sequence(os.path.join(work_dir, "equi_seq"), n_frames, c.fx, c.fy, c.cx, c.cy,
+                          c.width, c.height, sp=SimParams(**SMOKE_SIM),
+                          n_landmarks=SMOKE_LANDMARKS, seed=SMOKE_SEED,
+                          mounts=Mounts.from_config(cfg), camera=camera)
+    out = os.path.join(work_dir, "equi_out")
+    t0 = time.perf_counter()
+    system = run(cfg_path, seq, out, device=device)
+    if system.device.type == "cuda":
+        torch.cuda.synchronize()
+    return system, seq, out, time.perf_counter() - t0
+
+
+def detections_agree(np, a, b, margin: float = DET_SCORE_MARGIN, conf: float = DET_CONF,
+                     iou_thresh: float = 0.45):
+    """Whether two ``detect`` results (host arrays: boxes, scores, classes,
+    valid) agree away from the thresholds: every valid detection of either
+    whose score is more than ``margin`` above ``conf`` has a valid partner in
+    the other with the same class, its box within ``DET_BOX_TOL_PX`` and its
+    score within ``margin``. Ranks may differ where scores nearly tie, and a
+    box whose IoU with a kept box is within 0.02 of the NMS threshold may be
+    kept by one and suppressed by the other, so such boxes are not asked for.
+    Returns (ok, largest box difference in px, largest score difference)."""
+    worst_box = worst_score = 0.0
+    for x, y in ((a, b), (b, a)):
+        bx, sx, cx, vx = x
+        by, sy, cy, vy = y
+        for i in np.nonzero(vx & (sx > conf + margin))[0]:
+            partner = [j for j in np.nonzero(vy)[0] if cy[j] == cx[i]]
+            d = [float(np.abs(by[j] - bx[i]).max()) for j in partner]
+            if not d or min(d) > DET_BOX_TOL_PX:
+                kept = bx[vx]
+                inter = np.prod(np.clip(np.minimum(bx[i, 2:], kept[:, 2:])
+                                        - np.maximum(bx[i, :2], kept[:, :2]), 0, None), axis=1)
+                area_i = (bx[i, 2] - bx[i, 0]) * (bx[i, 3] - bx[i, 1])
+                areas = (kept[:, 2] - kept[:, 0]) * (kept[:, 3] - kept[:, 1])
+                iou = inter / np.maximum(area_i + areas - inter, 1e-6)
+                if np.any(np.abs(iou - iou_thresh) < 0.02):
+                    continue
+                return False, float("inf"), float("inf")
+            j = partner[int(np.argmin(d))]
+            worst_box = max(worst_box, min(d))
+            worst_score = max(worst_score, abs(float(sy[j]) - float(sx[i])))
+            if abs(float(sy[j]) - float(sx[i])) > margin:
+                return False, worst_box, worst_score
+    return True, worst_box, worst_score
+
+
+def detector_recall(np, results, gts, thresh=DET_IOU) -> tuple:
+    """(hits, objects): objects with a valid detection at IoU > ``thresh``
+    (tests/test_detector.py:78-95)."""
+    hits = total = 0
+    for (b, _, _, valid), (boxes, n) in zip(results, gts):
+        for k in range(n):
+            total += 1
+            gt = boxes[k]
+            for d in np.nonzero(valid)[0]:
+                bb = b[d]
+                x1, y1 = max(gt[0], bb[0]), max(gt[1], bb[1])
+                x2, y2 = min(gt[2], bb[2]), min(gt[3], bb[3])
+                inter = max(x2 - x1, 0) * max(y2 - y1, 0)
+                u = ((gt[2] - gt[0]) * (gt[3] - gt[1])
+                     + max((bb[2] - bb[0]) * (bb[3] - bb[1]), 0) - inter)
+                if inter / max(u, 1e-6) > thresh:
+                    hits += 1
+                    break
+    return hits, total
+
+
+def phase_detector(torch, seq_dir: str):
+    """13a: the shipped weights on the card against the CPU, on 10 scenes of
+    the training renderer and two 480x640 frames of 13b's drive."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.detector.model import backbone, detect, load_npz
+    from ground_fusion_tpu_torch.detector.train import render_scene
+
+    weights = os.path.join(ROOT, "ground_fusion_tpu_torch", "detector", "weights.npz")
+    p_gpu, p_cpu = load_npz(weights, device="cuda"), load_npz(weights, device="cpu")
+    rng = np.random.default_rng(DET_SEED)
+    scenes = [render_scene(rng) for _ in range(DET_SCENES)]
+    frames = [np.load(os.path.join(seq_dir, "img", f"{k:05d}.npy"))
+              for k in (DYN_OBJ_FIRST, DYN_FRAMES - 1)]
+    # the scenes at the recall oracle's threshold, the drive's frames at the
+    # system's (detect's default)
+    inputs = [(s[0], DET_CONF) for s in scenes] + [(f, 0.5) for f in frames]
+    results, worst_box, worst_score, worst_feat = [], 0.0, 0.0, 0.0
+    for img, conf in inputs:
+        g = [x.cpu().numpy() for x in detect(p_gpu, torch.as_tensor(img, device="cuda"),
+                                             conf_thresh=conf)]
+        c = [x.numpy() for x in detect(p_cpu, torch.as_tensor(img), conf_thresh=conf)]
+        ok, db, ds = detections_agree(np, g, c, conf=conf)
+        check(ok, f"detector: the card's detections differ from the CPU's (box {db:.3f} px, "
+                  f"score {ds:.4f})")
+        worst_box, worst_score = max(worst_box, db), max(worst_score, ds)
+        x = torch.as_tensor(img[None] / 255.0, dtype=torch.float32)
+        fg = backbone(p_gpu, x.to("cuda")).cpu().numpy()
+        fc = backbone(p_cpu, x).numpy()
+        gap = float(np.abs(fg - fc).max()) / float(np.abs(fc).max())
+        check(gap <= DET_FEAT_TOL, f"detector: features off by {gap:.4f} of their scale from the CPU's")
+        worst_feat = max(worst_feat, gap)
+        results.append(g)
+    hits, total = detector_recall(np, results[:DET_SCENES], [(s[1], s[2]) for s in scenes])
+    print(f"detector: {DET_SCENES} training scenes (96x96, seed {DET_SEED}) and 2 frames of the "
+          f"drive (480x640) on the card against the CPU: features within {worst_feat:.5f} of "
+          f"their largest magnitude (bound {DET_FEAT_TOL}), detections away from the thresholds "
+          f"equal, boxes within {worst_box:.4f} px, scores within {worst_score:.5f}; recall "
+          f"{hits}/{total} at IoU {DET_IOU} (bound {DET_RECALL})", flush=True)
+    check(hits >= DET_RECALL * total, f"detector: recall {hits}/{total}")
+    n_obj = [int(r[3].sum()) for r in results[DET_SCENES:]]
+    img = torch.as_tensor(frames[0], device="cuda")
+    fn = lambda: detect(p_gpu, img)
+    ms = _time_ms(torch, fn, DET_REPS)
+    dev = _device_total_ms(torch, fn)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    print(f"detector: detect at 480x640 {ms:.4f} ms a call (CUDA events, median of {DET_REPS}), "
+          f"{_fmt_ms(dev)} of device time a call under torch.profiler, peak {peak:.1f} MiB above "
+          f"the weights and the image; valid detections on the drive's frames {n_obj}", flush=True)
+    return {"detect_ms": ms, "device_ms": dev}
+
+
+def _device_total_ms(torch, fn, n: int = 20):
+    """Mean device time of all the kernels one call of ``fn`` launches, over
+    ``n`` calls under ``torch.profiler``; None when it saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for row in prof.key_averages():
+        total += getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0.0)
+    return total / n / 1e3 if total > 0 else None
+
+
+def phase_dynamic(torch, work_dir, main_times):
+    """13b: phase 4's drive cut to 24 frames with the object, through the
+    CLI with ``use_yolo``."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.ops.cuda import hamming, klt
+
+    _zero_counters(klt, hamming)
+    phase4 = os.path.join(work_dir, "seq")
+    system, seq, out, probe, wall = run_dynamic(
+        torch, work_dir, source=phase4 if os.path.isdir(phase4) else None)
+    counts = _read_counters(klt, hamming)
+    n_poses, ate, path = trajectory_ate(os.path.join(out, "vio.txt"), os.path.join(seq, "gt.csv"))
+    tracked, passed = probe.tracked, probe.passed
+    print(f"dynamic: {n_poses} poses over {path:.4f} m, ATE {ate:.5f} m (bounds {ATE_BOUND_M} m and "
+          f"{ATE_BOUND_OF_PATH:.0%} of the path), reboots {system.estimator.reboots}; features on "
+          f"the object from the tracker {tracked} (sum {sum(tracked)}), reaching input_frame "
+          f"{passed} (sum {sum(passed)}, bound {DYN_MAX_PASSED} of the tracker's)", flush=True)
+    check(n_poses >= 10, f"dynamic: only {n_poses} poses in vio.txt")
+    check(ate < ATE_BOUND_M, f"dynamic: ATE {ate:.4f} m is not below {ATE_BOUND_M} m")
+    check(ate < ATE_BOUND_OF_PATH * path,
+          f"dynamic: ATE {ate:.4f} m is not below {ATE_BOUND_OF_PATH:.0%} of {path:.3f} m")
+    check(system.estimator.reboots == 0, "dynamic: the estimator rebooted")
+    check(max(tracked) >= DYN_MIN_OBJ_FEATS, f"dynamic: the object was never tracked: {tracked}")
+    check(sum(passed) <= DYN_MAX_PASSED * sum(tracked),
+          f"dynamic: {sum(passed)} object features reached the estimator of {sum(tracked)}")
+    check(all(t.is_cuda for t in system.detector_params.convs[0]), "dynamic: the detector is not on the GPU")
+    tracked_frames = system.stats.counts["track"] - 1
+    check(tracked_frames == DYN_FRAMES - 1, f"dynamic: {tracked_frames} tracked frames")
+    check(system.stats.counts["detect"] == tracked_frames + 1,
+          f"dynamic: the detector ran on {system.stats.counts['detect']} frames")
+    check(counts["lk_track"] == tracked_frames,
+          f"dynamic: {counts['lk_track']} lk_track launches, expected {tracked_frames}")
+    check(counts["lk_level"] == 0 and counts["plain"] == 0,
+          f"dynamic: {counts['lk_level']} lk_level launches, plain versions ran {counts['plain']} times")
+    stats = system.stats
+    print(f"dynamic: detect median {stats.median('detect'):.2f} ms/frame (mean "
+          f"{stats.mean('detect'):.2f}), track median {stats.median('track'):.2f} (phase 4: "
+          f"{main_times['track'][0]:.2f}), solve median {stats.median('solve'):.2f} (mean "
+          f"{stats.mean('solve'):.2f}; phase 4: {main_times['solve'][0]:.2f}) over "
+          f"{stats.counts['solve']} frames; {DYN_FRAMES / wall:.3f} frames/s ({wall:.1f} s wall), "
+          f"launches {counts}", flush=True)
+    return counts, seq
+
+
+def phase_cameras(torch, work_dir, main_times):
+    """13c: the five models on the card against the CPU, the five
+    calibrations on the card, and the equidistant drive."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.cameras.calibration import calibrate
+    from ground_fusion_tpu_torch.ops.cuda import hamming, klt
+
+    gpu, uv = camera_round_trips(torch, "cuda", torch.float64)
+    cpu, _ = camera_round_trips(torch, "cpu", torch.float64)
+    parts = []
+    for name in gpu:
+        d_ray = float(np.abs(gpu[name][0] - cpu[name][0]).max())
+        d_px = float(np.abs(gpu[name][1] - cpu[name][1]).max())
+        rt = float(np.abs(gpu[name][1] - uv).max())
+        parts.append(f"{name} {d_ray:.1e}/{d_px:.1e}/{rt:.1e}")
+        check(d_ray <= CAM_F64_TOL and d_px <= CAM_F64_TOL * 1e3,
+              f"cameras: {name} on the card is {d_ray:.3e} (rays), {d_px:.3e} px from the CPU")
+        check(rt <= CAM_ROUND_TRIP_PX, f"cameras: {name} round trip {rt:.3e} px")
+    print(f"cameras: lift and project of {CAM_PIXELS} pixels in float64 on the card against the "
+          f"CPU (rays / pixels) and the round trip in px: " + ", ".join(parts), flush=True)
+
+    parts = []
+    for name, gt, project, view_kw, iters in calibration_cases():
+        world, img_pts = calibration_views(project, gt, **view_kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = calibrate(name, world, img_pts, iters=iters, device="cuda")
+        ms = (time.perf_counter() - t0) * 1e3
+        check(res.params[0].is_cuda, f"calibrate: {name} did not run on the GPU")
+        bad = calibration_errors(name, gt, project, res)
+        check(not bad, f"calibrate: {name}: " + "; ".join(bad))
+        parts.append(f"{name} rms {res.rms_px:.4f} px in {ms:.0f} ms ({iters} LM steps)")
+    print("calibrate: float64 on the card, within the oracles' bounds: " + ", ".join(parts), flush=True)
+
+    _zero_counters(klt, hamming)
+    system, seq, out, wall = run_equidistant(torch, work_dir)
+    counts = _read_counters(klt, hamming)
+    n_poses, ate, path = trajectory_ate(os.path.join(out, "vio.txt"), os.path.join(seq, "gt.csv"))
+    check(system.cam.name == "equidistant", f"equidistant: the system built {system.cam.name}")
+    tracked_frames = system.stats.counts["track"] - 1
+    print(f"equidistant: {n_poses} poses over {path:.4f} m, ATE {ate:.5f} m (bounds {ATE_BOUND_M} m "
+          f"and {ATE_BOUND_OF_PATH:.0%} of the path), reboots {system.estimator.reboots}; track "
+          f"median {system.stats.median('track'):.2f} ms/frame, solve median "
+          f"{system.stats.median('solve'):.2f}; {EQUI_FRAMES / wall:.3f} frames/s, launches {counts}",
+          flush=True)
+    check(n_poses >= 10, f"equidistant: only {n_poses} poses in vio.txt")
+    check(ate < ATE_BOUND_M, f"equidistant: ATE {ate:.4f} m is not below {ATE_BOUND_M} m")
+    check(ate < ATE_BOUND_OF_PATH * path,
+          f"equidistant: ATE {ate:.4f} m is not below {ATE_BOUND_OF_PATH:.0%} of {path:.3f} m")
+    check(system.estimator.reboots == 0, "equidistant: the estimator rebooted")
+    check(tracked_frames == EQUI_FRAMES - 1, f"equidistant: {tracked_frames} tracked frames")
+    check(counts["lk_track"] == tracked_frames and counts["lk_level"] == 0 and counts["plain"] == 0,
+          f"equidistant: launches {counts} for {tracked_frames} tracked frames")
+    return counts
+
+
+def phase_dynamic_cameras(torch, work_dir, main_times):
+    """Phase 13; returns the launches of its two drives."""
+    t0 = time.perf_counter()
+    dyn, seq = phase_dynamic(torch, work_dir, main_times)
+    phase_detector(torch, seq)
+    cams = phase_cameras(torch, work_dir, main_times)
+    print(f"dynamic and cameras: phase 13 took {time.perf_counter() - t0:.1f} s, phase 4 "
+          f"{main_times['phase_s']:.1f} s (both with their rendering)", flush=True)
+    return {k: dyn[k] + cams[k] for k in dyn}
+
+
 # ------------------------------------------------------------------------ main
 
 
@@ -3061,10 +3699,11 @@ def main() -> int:
         t0 = time.perf_counter()
         ckpt_counts = phase_checkpoint(torch, work_dir)
         print(f"checkpoint: phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+        dyn_counts = phase_dynamic_cameras(torch, work_dir, main_times)
         for name, entry in entries.items():
             entry["launches"] = (main_counts[name] + revisit_counts[name] + gnss_counts[name]
                                  + path_c_counts[name] + line_counts[name] + mode_counts[name]
-                                 + ckpt_counts[name])
+                                 + ckpt_counts[name] + dyn_counts[name])
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(card)

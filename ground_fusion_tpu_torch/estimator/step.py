@@ -127,18 +127,6 @@ def base_free_mask(cfg: Config, layout: StateLayout) -> np.ndarray:
     return m
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise for configuration switches whose modules are not ported yet."""
-    pending = [
-        (cfg.use_yolo, "use_yolo", "detector, calibration, other camera models"),
-    ]
-    for on, name, item in pending:
-        if on:
-            raise NotImplementedError(
-                f"config switch {name!r} is not ported to ground_fusion_tpu_torch yet "
-                f"(ROADMAP.md, queue 1: {item})")
-
-
 def _slide_gnss_old(o):
     """Drop epoch slot 0: every slot moves down one, the last is cleared."""
     if o is None:
@@ -409,7 +397,6 @@ def make_window_burst_ingest(cfg: Config, device=None):
 
 def _build_step(cfg: Config, device):
     """The window step body."""
-    check_supported(cfg)
     layout = StateLayout(cfg.num_frames, cfg.solver.max_landmarks,
                          cfg.lines.max_lines if cfg.use_line else 0)
     f = cfg.num_frames

@@ -6,9 +6,11 @@ Gaussian blobs at the projected landmark pixels over a dark noisy background
 (and, if asked for, bright bars along projected 3-D line segments, for the
 line detector), a depth image that carries each blob's range (and, if asked
 for, the range of an untextured cylindrical wall around the path behind every
-other pixel), and the IMU / wheel / ground truth files, all from a seed. The intrinsics come from the caller's config,
-and so may the sensor mounts (:class:`Mounts`): the simulator's camera always
-looks along the direction of travel, and the IMU (the body frame the
+other pixel), and the IMU / wheel / ground truth files, all from a seed. The
+intrinsics come from the caller's config (pinhole by default, or any
+dispatched camera model of :mod:`..cameras.models`), and so may the sensor
+mounts (:class:`Mounts`): the simulator's camera always looks along the
+direction of travel, and the IMU (the body frame the
 estimator solves for) and the wheel odometer are placed relative to that
 camera as the config's ``body_T_cam`` and ``body_T_wheel`` say, so that a
 config runs unchanged on the rendered sequence.
@@ -153,14 +155,24 @@ def render_frame(uv_px, z, vis, rng, width: int, height: int, background=None,
     return np.clip(img, 0, 255), depth
 
 
-def segment_pixels(pose, ex_cam, segments, fx: float, fy: float, cx: float, cy: float):
+def _project(camera, pts_c: np.ndarray) -> np.ndarray:
+    """Camera-frame points [N,3] → pixels [N,2] through a dispatched camera."""
+    dtype = camera.params[0].dtype
+    return camera.space_to_plane(torch.as_tensor(pts_c, dtype=dtype)).double().numpy()
+
+
+def segment_pixels(pose, ex_cam, segments, fx: float, fy: float, cx: float, cy: float,
+                   camera=None):
     """Pixel endpoints [M,4] of the world ``segments`` [N,2,3] whose two
     endpoints lie at least 0.3 m in front of the camera at ``pose`` ∘
-    ``ex_cam``."""
+    ``ex_cam``; through ``camera`` (a dispatched model) if given, else the
+    pinhole ``fx, fy, cx, cy``."""
     cam = pose_compose(torch.as_tensor(pose, dtype=F64), torch.as_tensor(ex_cam, dtype=F64))
     segs = torch.as_tensor(np.asarray(segments), dtype=F64)
     pa, pb = (pose_apply_inv(cam, segs[:, i]).numpy() for i in (0, 1))
     front = (pa[:, 2] > 0.3) & (pb[:, 2] > 0.3)
+    if camera is not None:
+        return np.concatenate([_project(camera, pa), _project(camera, pb)], axis=1)[front]
     k = np.array([fx, fy, fx, fy])
     c = np.array([cx, cy, cx, cy])
     uv = np.concatenate([pa[:, 0:2] / pa[:, 2:3], pb[:, 0:2] / pb[:, 2:3]], axis=1)
@@ -168,13 +180,20 @@ def segment_pixels(pose, ex_cam, segments, fx: float, fy: float, cx: float, cy: 
 
 
 def wall_depth(cam_pose, fx: float, fy: float, cx: float, cy: float, width: int, height: int,
-               radius: float) -> np.ndarray:
+               radius: float, camera=None) -> np.ndarray:
     """Depth image [H,W] (z in the camera) of the vertical cylinder of
     ``radius`` about the world's z axis, seen from inside by the camera at
-    ``cam_pose`` (world_T_cam [7]); 0 where a ray runs parallel to the axis."""
+    ``cam_pose`` (world_T_cam [7]); 0 where a ray runs parallel to the axis.
+    Each pixel's ray comes from ``camera.lift_projective`` if a dispatched
+    model is given, else from the pinhole ``fx, fy, cx, cy``."""
     p = np.asarray(cam_pose, np.float64)
     u, v = np.meshgrid(np.arange(width), np.arange(height))
-    rays = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u, float)], -1)
+    if camera is None:
+        rays = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u, float)], -1)
+    else:
+        uv = torch.as_tensor(np.stack([u, v], -1), dtype=camera.params[0].dtype)
+        r = camera.lift_projective(uv)
+        rays = (r / torch.clamp(torch.abs(r[..., 2:3]), min=1e-9)).double().numpy()
     d = rays @ np_quat.quat_to_mat(p[3:7]).T                # world direction, z_cam = 1
     a = d[..., 0] ** 2 + d[..., 1] ** 2
     b = 2.0 * (p[0] * d[..., 0] + p[1] * d[..., 1])
@@ -187,7 +206,7 @@ def render_sequence(out_dir: str, n_frames: int, fx: float, fy: float, cx: float
                     cy: float, width: int, height: int, sp: SimParams | None = None,
                     n_landmarks: int = 600, seed: int = 0,
                     mounts: Mounts | None = None, wall_radius: float | None = None,
-                    segments=None) -> str:
+                    segments=None, camera=None) -> str:
     """Write ``n_frames`` rendered frames plus ``imu.csv``, ``wheel.csv``,
     ``frames.csv`` and ``gt.csv`` (the IMU's pose) into ``out_dir``; returns
     ``out_dir``. ``mounts=None`` keeps the simulator's own sensor frames.
@@ -195,7 +214,10 @@ def render_sequence(out_dir: str, n_frames: int, fx: float, fy: float, cx: float
     centre into the depth images (dense depth for the dense map); by default
     only the blobs have a depth. ``segments`` [N,2,3] (world endpoints, e.g.
     from :func:`..sim.synthetic.make_segments`) are drawn as bright bars
-    wherever both endpoints lie in front of the camera."""
+    wherever both endpoints lie in front of the camera. ``camera`` (a model
+    from :func:`..cameras.models.make_camera`, on the CPU) places the blobs,
+    the segments and the wall's rays through that model; by default the
+    pinhole ``fx, fy, cx, cy`` does."""
     sp = sp if sp is not None else SimParams(omega=0.25)
     mounts = mounts if mounts is not None else Mounts()
     os.makedirs(os.path.join(out_dir, "img"), exist_ok=True)
@@ -218,14 +240,18 @@ def render_sequence(out_dir: str, n_frames: int, fx: float, fy: float, cx: float
 
         pose = gt_pose7(t, sp)
         uv, z, vis = project_landmarks(pose, ex, pts_w)
-        uv_px = uv.numpy() * [fx, fy] + [cx, cy]
+        if camera is None:
+            uv_px = uv.numpy() * [fx, fy] + [cx, cy]
+        else:
+            uv_px = _project(camera, np.concatenate([uv.numpy(), np.ones((len(uv), 1))], 1))
         background = None
         if wall_radius is not None:
             cam = pose_compose(pose, ex).numpy()
-            background = wall_depth(cam, fx, fy, cx, cy, width, height, wall_radius)
+            background = wall_depth(cam, fx, fy, cx, cy, width, height, wall_radius,
+                                    camera=camera)
         seg_px = None
         if segments is not None:
-            seg_px = segment_pixels(pose, ex, segments, fx, fy, cx, cy)
+            seg_px = segment_pixels(pose, ex, segments, fx, fy, cx, cy, camera=camera)
         img, depth = render_frame(uv_px, z.numpy(), vis.numpy(), rng, width, height, background,
                                   segments_px=seg_px)
         np.save(os.path.join(out_dir, "img", f"{k:05d}.npy"), img)

@@ -1,19 +1,20 @@
 """Full-system orchestration: tracker + estimator + loop closure + mapping.
 
 The one-object equivalent of the reference's ROS processes (``vins_node`` +
-``dense_map_node`` + ``global_fusion_node`` — SURVEY §1 L0/L5): images go
-through the KLT front-end, features into the sliding-window estimator,
-keyframes into the BoW/pose-graph loop closure and the dense voxel map (with
-its TSDF mesh), solved poses and NavSatFix fixes into the GPS/VIO global
-fusion. Everything is in-process — module-to-module calls replace ROS
+``dense_map_node`` + ``global_fusion_node`` + ``darknet_ros`` — SURVEY §1
+L0/L5): images go through the KLT front-end, features into the
+sliding-window estimator, keyframes into the BoW/pose-graph loop closure and
+the dense voxel map (with its TSDF mesh), solved poses and NavSatFix fixes
+into the GPS/VIO global fusion. Everything is in-process — module-to-module calls replace ROS
 pub/sub (SURVEY §2 parallelism table). With ``use_line`` a line tracker
 feeds segment observations to the estimator beside the point features. With
 ``burst_chunk`` K the estimator stages K frames per flush and the post-solve
 hooks (calibration dump, loop keyframes, the map, GPS fusion, telemetry)
 drain from the trajectory at each flush. ``save_checkpoint`` writes the
 estimator's snapshot and the pose graph; ``load_checkpoint`` resumes from
-them and from a prior occupancy grid. The detector of the JAX package is not
-ported yet; a config that turns it on raises at construction.
+them and from a prior occupancy grid. With ``use_yolo`` the dynamic-object
+detector (:mod:`.detector.model`) runs on every frame after the tracker and
+culls the features that fall inside a dynamic-class box.
 
 Run from a dataset directory::
 
@@ -24,6 +25,7 @@ Run from a dataset directory::
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -32,7 +34,7 @@ import torch
 from . import resolve_device
 from .cameras.models import make_camera
 from .config import Config
-from .estimator.step import check_supported
+from .detector.model import cull_features_in_boxes, detect, init_params, load_npz
 from .frontend.lines import LineTracker
 from .frontend.tracker import FeatureTracker
 from .geometry.se3 import pose_apply, pose_compose
@@ -49,7 +51,6 @@ from .utils.profiling import StageStats
 class GroundFusionSystem:
     def __init__(self, cfg: Config, out_dir: str = "output", device=None):
         """``device=None`` means the GPU and raises when there is none."""
-        check_supported(cfg)
         self.cfg = cfg
         self.out_dir = out_dir
         self.device = resolve_device(device)
@@ -79,6 +80,9 @@ class GroundFusionSystem:
                 cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy,
                 max_lines=cfg.lines.max_lines, min_len_px=cfg.lines.min_seg_len_px,
                 device=self.device)
+        self.detector_params = None
+        if cfg.use_yolo:
+            self.detector_params = self._load_detector(out_dir)
         # the camera's parameters as host floats, for host-side projections
         self._cam_host = type(self.cam.params)(*[p.cpu() for p in self.cam.params])
 
@@ -129,6 +133,35 @@ class GroundFusionSystem:
         self._consumed = 0
         if self._burst:
             self.estimator.enable_burst(cfg.burst_chunk)
+
+    def _load_detector(self, out_dir: str):
+        """Detector weights: the per-run override ``<out_dir>/detector.npz``,
+        then the shipped trained file (the reference loads pretrained darknet
+        weights the same way, YoloObjectDetector.cpp + yolo_network_config/);
+        with neither, a warning and a random init."""
+        run_w = os.path.join(out_dir, "detector.npz")
+        shipped = os.path.join(os.path.dirname(__file__), "detector", "weights.npz")
+        for path in (run_w, shipped):
+            if os.path.exists(path):
+                return load_npz(path, device=self.device)
+        warnings.warn("use_yolo set but no detector weights found; random init will "
+                      "cull features with noise")
+        return init_params(device=self.device)
+
+    def _cull_dynamic(self, img: np.ndarray, feats: dict) -> dict:
+        """Drop the features inside a dynamic-class detection (trackImagebox,
+        feature_tracker.cpp:564-606). The image goes up to the device once,
+        the detector and the cull run there, and the keep mask comes back in
+        one fetch. The tracker's points and ``feats`` are in the same order
+        (the tracker builds ``feats`` from its ids, which ``prev_pts``
+        follows), so they pair by position. In burst mode this fetch happens
+        while the frame is staged, as in the JAX package."""
+        img_rgb = img if img.ndim == 3 else np.repeat(img[..., None], 3, -1)
+        img_d = torch.as_tensor(np.ascontiguousarray(img_rgb, np.float32)).to(self.device)
+        boxes, _, classes, valid = detect(self.detector_params, img_d)
+        pts = torch.as_tensor(self.tracker.prev_pts).to(self.device)
+        keep = cull_features_in_boxes(pts, boxes, classes, valid).cpu().numpy()
+        return {fid: f for (fid, f), k in zip(feats.items(), keep) if k}
 
     # ------------------------------------------------------------- telemetry
 
@@ -197,11 +230,17 @@ class GroundFusionSystem:
             # prediction seeding reads the freshly solved core; mid-chunk the
             # core is stale in burst mode, so it seeds nothing there
             self._seed_tracker_predictions()
-        # KLT and the line tracker consume luminance
+        # KLT and the line tracker consume luminance; the detector consumes
+        # 3 channels (the reference's img_callback hands BGR8 to darknet and
+        # MONO8 to the tracker, rosNodeTest.cpp / YoloObjectDetector.cpp)
         img = np.asarray(img)
         img_gray = img.mean(axis=-1) if img.ndim == 3 else img
         with self.stats.time("track"):
             feats = self.tracker.track(t, img_gray, depth, img_right=img_right)
+
+        if self.detector_params is not None and len(self.tracker.prev_pts):
+            with self.stats.time("detect"):
+                feats = self._cull_dynamic(img, feats)
 
         line_obs = None
         if self.line_tracker is not None:
@@ -435,10 +474,12 @@ class GroundFusionSystem:
 
     def _integrate_tsdf(self, depth, color, cam_pose) -> None:
         # the TSDF raster assumes a pinhole-style intrinsic grid (as does the
-        # reference's RGBD mapping node)
-        p = self._cam_host
-        self.tsdf.integrate(depth, color, cam_pose, float(p.fx), float(p.fy),
-                            float(p.cx), float(p.cy))
+        # reference's RGBD mapping node); a Scaramuzza model has no focal of
+        # its own, so the config's nominal one stands in (the JAX package
+        # raises there)
+        p, c = self._cam_host, self.cfg.camera
+        fx, fy, cx, cy = (float(getattr(p, k, getattr(c, k))) for k in ("fx", "fy", "cx", "cy"))
+        self.tsdf.integrate(depth, color, cam_pose, fx, fy, cx, cy)
 
     def _map_keyframe(self, pose, img, depth, register: Optional[int] = None):
         """Insert one RGBD frame into the voxel map at ``pose`` (already

@@ -40,7 +40,8 @@ def test_no_module_of_the_port_imports_jax():
     assert int(lines["MODULES"]) >= 30
     walked = set(lines["NAMES"].split())
     for name in ("estimator.sfm", "global_layers.dense_map", "global_layers.meshing",
-                 "frontend.lines", "estimator.lines"):
+                 "frontend.lines", "estimator.lines", "detector.model", "detector.train",
+                 "cameras.calibration", "utils.wheel_odom"):
         assert f"ground_fusion_tpu_torch.{name}" in walked, name
     assert lines["BAD"] == "[]", lines["BAD"]
 
@@ -59,13 +60,16 @@ def _no_gpu():
                                    "FeatureTracker", "GroundFusionSystem", "PoseGraph",
                                    "KeyframeDatabase", "DBoW2Vocabulary", "load_binary",
                                    "GlobalFusion", "VoxelColorMap", "TsdfVolume",
-                                   "OccupancyGrid2D", "LineTracker", "cli"])
+                                   "OccupancyGrid2D", "LineTracker", "load_npz", "init_params",
+                                   "calibrate", "cli"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     """No 'cuda if available else cpu': with no device argument every entry
     point resolves to the GPU, and raises on a machine that has none."""
     if not _no_gpu():
         pytest.skip("this machine has a GPU: the default device resolves")
+    from ground_fusion_tpu_torch.cameras.calibration import calibrate
     from ground_fusion_tpu_torch.cameras.models import PinholeParams
+    from ground_fusion_tpu_torch.detector.model import init_params, load_npz
     from ground_fusion_tpu_torch.estimator.step import make_window_step
     from ground_fusion_tpu_torch.frontend.lines import LineTracker
     from ground_fusion_tpu_torch.frontend.tracker import FeatureTracker
@@ -79,6 +83,7 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = Config()
+    board = np.stack(np.meshgrid(np.arange(4.0), np.arange(3.0)), -1).reshape(-1, 2)
     # a one-level vocabulary: the root and its two leaves
     tree = (2, 1, np.array([[1, 2], [-1, -1], [-1, -1]]), np.zeros((3, 8), np.uint32),
             np.array([-1, 0, 1]), np.ones(3))
@@ -99,6 +104,10 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
         "TsdfVolume": lambda: TsdfVolume(resolution=4),
         "OccupancyGrid2D": lambda: OccupancyGrid2D(size_m=1.0, resolution=0.5),
         "LineTracker": lambda: LineTracker(300.0, 300.0, 160.0, 120.0),
+        "load_npz": lambda: load_npz(os.path.join(ROOT, "ground_fusion_tpu_torch", "detector",
+                                                  "weights.npz")),
+        "init_params": lambda: init_params(),
+        "calibrate": lambda: calibrate("pinhole", board, [board * 100.0] * 3),
     }
     if entry == "cli":
         r = subprocess.run(
@@ -135,24 +144,29 @@ def test_lk_level_on_cpu_uses_the_plain_version_and_counts_no_launch():
 
 
 @pytest.mark.parametrize("switch", ["use_yolo", "burst_chunk"])
-def test_unported_switches_raise_by_name(switch, tmp_path):
-    """``use_yolo`` still raises by name; ``burst_chunk`` is ported: the
-    system builds and puts its estimator in burst mode with that chunk."""
+def test_yolo_and_burst_switches_build(switch, tmp_path):
+    """``use_yolo`` builds the system with the detector and the shipped
+    weights on the device it was given; ``burst_chunk`` puts its estimator in
+    burst mode with that chunk."""
     import dataclasses
 
-    from ground_fusion_tpu_torch.estimator.step import check_supported
+    from ground_fusion_tpu_torch.detector.model import load_npz
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = Config()
     if switch == "burst_chunk":
         cfg = dataclasses.replace(cfg, burst_chunk=8)
-        check_supported(cfg)
         system = GroundFusionSystem(cfg, str(tmp_path), device="cpu")
         assert system._burst and system.estimator._burst_chunk == 8
         return
-    cfg = dataclasses.replace(cfg, **{switch: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GroundFusionSystem(cfg, str(tmp_path), device="cpu")
+    system = GroundFusionSystem(dataclasses.replace(cfg, use_yolo=True), str(tmp_path), device="cpu")
+    shipped = load_npz(os.path.join(ROOT, "ground_fusion_tpu_torch", "detector", "weights.npz"),
+                       device="cpu")
+    assert len(system.detector_params.convs) == 5
+    for got, want in zip(system.detector_params.convs[4] + (system.detector_params.head_w,),
+                         shipped.convs[4] + (shipped.head_w,)):
+        assert got.device.type == "cpu" and torch.equal(got, want)
+    assert GroundFusionSystem(cfg, str(tmp_path), device="cpu").detector_params is None
 
 
 def test_use_line_config_builds_with_lines(tmp_path):
@@ -161,13 +175,11 @@ def test_use_line_config_builds_with_lines(tmp_path):
     per line slot; a frame with segment observations fills line slots."""
     import dataclasses
 
-    from ground_fusion_tpu_torch.estimator.step import check_supported
     from ground_fusion_tpu_torch.pipeline import FrameFeature
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = load_yaml(os.path.join(ROOT, "configs", "groundchallenge.yaml"))
     cfg = dataclasses.replace(cfg, use_line=True)
-    check_supported(cfg)
     system = GroundFusionSystem(cfg, str(tmp_path), device="cpu")
     est = system.estimator
     ll = cfg.lines.max_lines
@@ -218,7 +230,6 @@ def test_map_and_extrinsic_calibration_configs_build(switch, tmp_path):
     was given, and the estimator takes the hand-eye bootstrap."""
     import dataclasses
 
-    from ground_fusion_tpu_torch.estimator.step import check_supported
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = Config()
@@ -228,7 +239,6 @@ def test_map_and_extrinsic_calibration_configs_build(switch, tmp_path):
     else:
         cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
                                                                   calibrate_extrinsic=True))
-    check_supported(cfg)
     system = GroundFusionSystem(cfg, str(tmp_path), device="cpu")
     if switch == "map":
         assert system.voxel_map.counts.device.type == "cpu"
@@ -240,13 +250,11 @@ def test_map_and_extrinsic_calibration_configs_build(switch, tmp_path):
 def test_m2dgrp_config_builds_with_gnss(tmp_path):
     """``configs/m2dgrp.yaml`` (tight GNSS) builds in the port: the estimator
     carries a GNSS table and ingest, the system waits for GPS fixes."""
-    from ground_fusion_tpu_torch.estimator.step import check_supported
     from ground_fusion_tpu_torch.pipeline import Estimator
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = load_yaml(os.path.join(ROOT, "configs", "m2dgrp.yaml"))
     assert cfg.gnss.enabled
-    check_supported(cfg)
     est = Estimator(cfg, device="cpu")
     assert est.gnss is not None and not est.gnss_aligned
     assert tuple(est.core.gnss_obs.valid.shape) == (cfg.num_frames, cfg.gnss.max_sats)
@@ -254,14 +262,75 @@ def test_m2dgrp_config_builds_with_gnss(tmp_path):
     assert system.global_fusion is None and system.estimator.gnss is not None
 
 
-def test_unported_camera_models_raise_by_name():
+def test_every_camera_model_dispatches_and_unknown_raises():
+    """Each of the five models of the JAX package dispatches (none raises
+    ``NotImplementedError`` any more); an unknown name raises ``ValueError``."""
     from ground_fusion_tpu_torch.cameras.models import make_camera
 
-    for model in ("pinhole_full", "mei", "equidistant", "scaramuzza"):
-        with pytest.raises(NotImplementedError, match=model):
-            make_camera(model, 300.0, 300.0, 160.0, 120.0)
+    for model in ("pinhole", "pinhole_full", "mei", "equidistant", "scaramuzza"):
+        cam = make_camera(model, 300.0, 300.0, 160.0, 120.0, device="cpu")
+        assert cam.name == model
+        uv = cam.space_to_plane(torch.tensor([[0.1, -0.05, 1.0]]))
+        assert tuple(uv.shape) == (1, 2) and bool(torch.isfinite(uv).all())
     with pytest.raises(ValueError):
         make_camera("no_such_model", 300.0, 300.0, 160.0, 120.0)
+
+
+@pytest.mark.parametrize("model", ["pinhole_full", "mei", "equidistant", "scaramuzza"])
+def test_system_hooks_run_with_every_camera_model(model, tmp_path):
+    """The system with each non-pinhole model (Mei and Scaramuzza lift to
+    rays that are not z = 1 before scaling): the host copy of the camera that
+    the prediction seeding and the keyframe hook use projects and lifts
+    consistently, a keyframe maps into the voxel map and the TSDF, and the
+    CLI runs a short sequence rendered through the model with ``use_yolo``."""
+    import dataclasses
+
+    from chip_smoke import camera_cases
+    from ground_fusion_tpu_torch.system import GroundFusionSystem
+
+    cfg = Config()
+    cam = dataclasses.replace(cfg.camera, model=model, width=64, height=48, fx=60.0, fy=60.0,
+                              cx=32.0, cy=24.0, distortion=dict(camera_cases(np))[model])
+    cfg = dataclasses.replace(cfg, camera=cam, map=dataclasses.replace(
+        cfg.map, enabled=True, mesh=True, mesh_resolution=8, depth_stride=4))
+    system = GroundFusionSystem(cfg, str(tmp_path), device="cpu")
+    assert system.cam.name == model
+    rays = torch.tensor([[0.1, -0.05, 1.0], [-0.2, 0.1, 1.0]])
+    px = system.cam.project(system._cam_host, rays)
+    back = system.cam.lift(system._cam_host, px)
+    assert torch.allclose(back[:, 0:2] / back[:, 2:3], rays[:, 0:2], atol=1e-4)
+    img = np.full((48, 64), 100.0, np.float32)
+    depth = np.full((48, 64), 2.0, np.float32)
+    system._map_keyframe(np.array([0.0, 0, 0, 1, 0, 0, 0]), img, depth)
+    assert int(system.voxel_map.counts.gt(0).sum()) > 0
+    assert bool(torch.isfinite(system.tsdf.tsdf).all())
+
+    # the CLI on a short sequence rendered through that model, with use_yolo
+    from ground_fusion_tpu_torch import __main__ as cli
+    from ground_fusion_tpu_torch.cameras.models import make_camera
+    from ground_fusion_tpu_torch.sim.render import render_sequence
+
+    cam64 = make_camera(model, 60.0, 60.0, 32.0, 24.0, cam.distortion, dtype=torch.float64,
+                        device="cpu")
+    # 96x96: the detector needs its 16 candidate boxes (a 3x3 grid of 3 anchors)
+    seq = render_sequence(str(tmp_path / "seq"), 3, 60.0, 60.0, 32.0, 24.0, 96, 96,
+                          n_landmarks=300, camera=cam64)
+    with open(os.path.join(ROOT, "configs", "groundchallenge.yaml")) as fp:
+        text = fp.read()
+    for old_line, new_line in (("model: pinhole", f"model: {model}"), ("width: 640", "width: 96"),
+                               ("height: 480", "height: 96"), ("cx: 330.0", "cx: 32.0"),
+                               ("cy: 248.0", "cy: 24.0"), ("fx: 611.4509887695312", "fx: 60.0"),
+                               ("fy: 611.4857177734375", "fy: 60.0"),
+                               ("distortion: [0.0, 0.0, 0.0, 0.0]",
+                                f"distortion: {[float(v) for v in cam.distortion]}"),
+                               ("use_yolo: false", "use_yolo: true")):
+        text = text.replace(old_line, new_line)
+    cfg_path = str(tmp_path / "cfg.yaml")
+    with open(cfg_path, "w") as fp:
+        fp.write(text)
+    out = str(tmp_path / "out")
+    assert cli.main([cfg_path, seq, out, "--device", "cpu"]) == 0
+    assert os.path.exists(os.path.join(out, "vio.txt"))
 
 
 @pytest.mark.parametrize("name", ["groundchallenge.yaml", "m2dgrp.yaml"])
