@@ -135,6 +135,19 @@ Phases (any failure ends the run with a non-zero exit code):
               float64, and the sharded fleet of 11c (2 cores a rank) against
               the unsharded fleet at ``tests/test_burst.py``'s tolerances;
               ms per solve and per fleet step. NCCL across cards is not run.
+              (d) Two ranks again: the landmark-sharded window step
+              (``make_sharded_window_step``, half the landmark and line
+              slots a rank) in float64 at full width,
+              ``configs/groundchallenge.yaml`` on the filled core of 11c and
+              ``configs/m2dgrp.yaml`` with ``use_line`` and the plane on a
+              core filled as the JAX driver's dryrun fills its core: both
+              branches from the core and the keyframe branch from the
+              keyframe step's core, against the unsharded step: poses,
+              depths and line coordinates to 1e-8, the prior's J0ᵀJ0 and
+              J0ᵀr0 to 1e-5 (or 1e-8 of their scale), slot masks equal,
+              both ranks' outputs and replicated state bitwise equal; ms
+              per step of both (CUDA events), reductions per step, the
+              float32 difference (printed, not gated).
 13. dynamic objects and cameras — (b) phase 4's drive cut to 24 frames with
               the checker object of ``tests/test_detector_e2e.py`` (32 px,
               a false depth of 1.2 m, ~1 px a frame, on a mid-grey
@@ -162,8 +175,8 @@ entry point: ``lk_level``, ``lk_track``, ``hamming_matrix``,
 11, 12 and 13), and the last line ``{"ok": true, "device": {...}}``.
 
 The script imports only the port (never JAX or the JAX package), needs no
-network, and starts no process that outlives it (phase 12c's two ranks are
-joined with a timeout and killed past it).
+network, and starts no process that outlives it (phase 12c-d's two ranks
+are joined with a timeout and killed past it).
 """
 
 from __future__ import annotations
@@ -2564,6 +2577,10 @@ RELOC_KEYFRAMES = 10
 SHARD_WORLD = 2
 SHARD_TIMEOUT_S = 300
 SHARD_GRAPH_TOL = 1e-8       # tests/test_parallel.py, float64
+# The landmark-sharded window step (12d) against the unsharded step, float64:
+# poses and slid inverse depths, and the prior's information J0ᵀJ0 and
+# gradient J0ᵀr0 (tests/test_parallel.py:54-75)
+SHARD_STEP_TOL, SHARD_PRIOR_TOL = 1e-8, 1e-5
 
 
 def _ckpt_config(work_dir: str) -> str:
@@ -2896,14 +2913,408 @@ def sharded_graph_problem(np):
                 valid=np.ones(e, bool))
 
 
+def dryrun_core(cfg, dtype, device, seed: int = 0):
+    """(core, flags) filled as the JAX driver's multichip dryrun fills its
+    core (``__graft_entry__.py:105-148``), at ``cfg``'s widths: frames 0.1 m
+    apart along x (1 m/s, the speed of the dryrun's wheel), every landmark
+    and line slot active and seen in every frame, the IMU and wheel buffers
+    full (gravity and the wheel's 1 m/s, a frame interval of 0.1 s), and
+    with GNSS one satellite in epoch slot F-2 at the dryrun's ENU vector.
+    Where the dryrun repeats one value, ``seed`` draws the scene: each
+    landmark a point 2-6 m ahead, seen at its projections plus 1e-3 noise
+    with its measured depth, its inverse depth the truth times 1 + 0.05 N;
+    each line a 0.8 m segment 3-5 m ahead, seen at its projected endpoints
+    plus 5e-4 noise, the first half of the slots triangulated (their true
+    line plus 1e-3), the rest upright and waiting for triangulation. The flags are the
+    dryrun's keyframe flags: ``marg_old`` and ``first_gnss_opt`` set
+    (:func:`dryrun_flags` for the other branch)."""
+    import numpy as np
+    import torch
+
+    from ground_fusion_tpu_torch.estimator.assembly import empty_prior
+    from ground_fusion_tpu_torch.estimator.buffers import empty_imu_buffer, empty_wheel_buffer
+    from ground_fusion_tpu_torch.estimator.layout import StateLayout
+    from ground_fusion_tpu_torch.estimator.lines import empty_line_tracks
+    from ground_fusion_tpu_torch.estimator.step import EstimatorCore
+    from ground_fusion_tpu_torch.estimator.window import empty_state, empty_tracks
+    from ground_fusion_tpu_torch.frontend.lines import plk_to_orth
+    from ground_fusion_tpu_torch.gnss.factors import empty_gnss_obs
+
+    f, ml = cfg.num_frames, cfg.solver.max_landmarks
+    kw = dict(dtype=dtype, device=device)
+    rng = np.random.default_rng(seed)
+    cam_x = 0.1 * np.arange(f)                 # identity rotations and extrinsics
+    mid = 0.5 * cam_x[-1]
+    pts = np.stack([mid + rng.uniform(-1.5, 1.5, ml), rng.uniform(-0.8, 0.8, ml),
+                    rng.uniform(2.0, 6.0, ml)], -1)
+    rel = pts[:, None, :] - np.stack([cam_x, 0 * cam_x, 0 * cam_x], -1)[None]    # [ML,F,3]
+    obs = np.zeros((ml, f, 5))
+    obs[..., 0:2] = rel[..., 0:2] / rel[..., 2:3] + 1e-3 * rng.normal(size=(ml, f, 2))
+    obs[..., 4] = rel[..., 2]
+    ones = torch.ones(ml, dtype=torch.bool, device=device)
+    tracks = empty_tracks(ml, f, **kw)._replace(
+        active=ones, solve_ok=ones.clone(), obs=torch.as_tensor(obs).to(**kw),
+        obs_valid=torch.ones((ml, f), dtype=torch.bool, device=device),
+        inv_depth=torch.as_tensor((1.0 + 0.05 * rng.normal(size=ml)) / pts[:, 2]).to(**kw))
+    state = empty_state(f, **kw)
+    poses = state.poses.clone()
+    poses[:, 0] = torch.as_tensor(cam_x).to(**kw)
+    sbs = state.sbs.clone()
+    sbs[:, 0] = 1.0
+    state = state._replace(poses=poses, sbs=sbs,
+                           anc_ecef=torch.tensor([1.5, -0.8, 0.2], **kw))
+    ib = empty_imu_buffer(f, cfg.solver.max_imu_per_interval, **kw)
+    ib = ib._replace(dts=torch.full_like(ib.dts, 0.1 / ib.dts.shape[1]),
+                     valid=torch.ones_like(ib.valid),
+                     acc=torch.cat([ib.acc[..., :2], torch.full_like(ib.acc[..., 2:], 9.805)], -1))
+    wb = empty_wheel_buffer(f, cfg.solver.max_wheel_per_interval, **kw)
+    wb = wb._replace(dts=torch.full_like(wb.dts, 0.1 / wb.dts.shape[1]),
+                     valid=torch.ones_like(wb.valid),
+                     vel=torch.cat([torch.full_like(wb.vel[..., :1], 1.0), wb.vel[..., 1:]], -1))
+    ll = cfg.lines.max_lines if cfg.use_line else 0
+    core = EstimatorCore(state=state, tracks=tracks, imu_buf=ib, wheel_buf=wb,
+                         prior=empty_prior(StateLayout(f, ml, ll), f, **kw))
+    if cfg.use_line:
+        centre = np.stack([mid + rng.uniform(-1.0, 1.0, ll), rng.uniform(-0.5, 0.5, ll),
+                           rng.uniform(3.0, 5.0, ll)], -1)
+        solved = np.arange(ll) < (ll + 1) // 2
+        d = rng.normal(size=(ll, 3))
+        d[~solved] = [0.0, 1.0, 0.0] + 0.2 * d[~solved]      # upright: parallax across the motion
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        a, b = centre - 0.4 * d, centre + 0.4 * d
+        cams = np.stack([cam_x, 0 * cam_x, 0 * cam_x], -1)[None]                   # [1,F,3]
+        ra, rb = a[:, None] - cams, b[:, None] - cams
+        lobs = np.concatenate([ra[..., 0:2] / ra[..., 2:3], rb[..., 0:2] / rb[..., 2:3]], -1)
+        lobs = lobs + 5e-4 * rng.normal(size=(ll, f, 4))
+        plk = torch.as_tensor(np.concatenate([np.cross(a, b), b - a], -1))       # frame 0 = world
+        orth = plk_to_orth(plk).numpy() + 1e-3 * rng.normal(size=(ll, 4))
+        lines = empty_line_tracks(ll, f, **kw)._replace(
+            orth=torch.as_tensor(np.where(solved[:, None], orth, 0.0)).to(**kw),
+            active=torch.ones(ll, dtype=torch.bool, device=device),
+            solve_ok=torch.as_tensor(solved, device=device),
+            obs=torch.as_tensor(lobs).to(**kw),
+            obs_valid=torch.ones((ll, f), dtype=torch.bool, device=device))
+        core = core._replace(lines=lines)
+    if cfg.gnss.enabled:
+        g = empty_gnss_obs(f, cfg.gnss.max_sats, **kw)
+        rvec = torch.tensor([-0.5e7, 2.0e7, 1.2e7], **kw)
+        at = lambda t, v: torch.cat([t[: f - 2], torch.cat([v[None], t[f - 2, 1:]])[None],
+                                     t[f - 1:]])
+        g = g._replace(rvec0=at(g.rvec0, rvec), rng0=at(g.rng0, torch.linalg.norm(rvec)),
+                       psr_red=at(g.psr_red, torch.tensor(5.0, **kw)),
+                       pr_weight=at(g.pr_weight, torch.tensor(1.0, **kw)),
+                       dp_weight=at(g.dp_weight, torch.tensor(1.0, **kw)),
+                       valid=at(g.valid, torch.tensor(True, device=device)))
+        core = core._replace(gnss_obs=g)
+    return core, dryrun_flags(cfg, dtype, device, True)
+
+
+def dryrun_flags(cfg, dtype, device, marg_old: bool):
+    """The dryrun's step flags for one branch (``__graft_entry__.py:151-161``):
+    IMU and wheel intervals live, IMU propagation of the newest slot, with
+    GNSS ready, frame intervals of 0.1 s, the yaw free and the first-solve
+    pose anchor set with ``marg_old``."""
+    import torch
+
+    from ground_fusion_tpu_torch.estimator.step import StepFlags
+
+    f = cfg.num_frames
+    interval = torch.arange(f, device=device) >= 1
+    b = lambda v: torch.tensor(v, device=device)
+    gnss = {}
+    if cfg.gnss.enabled:
+        gnss = dict(gnss_ready=b(True), frame_dts=torch.full((f,), 0.1, dtype=dtype, device=device),
+                    fix_yaw_enu=b(False), first_gnss_opt=b(marg_old))
+    return StepFlags(marg_old=marg_old, stationary=b(False), wheel_valid=interval,
+                     imu_valid=interval.clone(), td_obs=torch.zeros(f, dtype=dtype, device=device),
+                     propagate_newest=b(True), **gnss)
+
+
+def shard_step_cases(width: str) -> dict:
+    """The configurations of the landmark-sharded step's checks, by name.
+    ``small`` (tests/test_torch_sharded_step.py): window 4, 16 landmarks,
+    plane on, 8 IMU and wheel samples an interval, 2 dogleg iterations (each
+    iteration costs the CPU ~0.6 s of dispatch); ``jax`` without lines or
+    GNSS (the JAX package's program of that config compiles in ~35 s on a
+    CPU), ``full`` with the dryrun's factor set (2 line slots at ``min_obs``
+    3, so that a line still triangulates after a slide out of the 5-frame
+    window; GNSS with 4 satellites), ``dense`` and ``lm`` the same with ``linear_solver:
+    dense`` and ``method: lm``. ``full`` (phase 12d): ``groundchallenge``
+    (``configs/groundchallenge.yaml`` unchanged, on :func:`filled_core`) and
+    ``m2dgrp_lines`` (``configs/m2dgrp.yaml`` with ``use_line`` and
+    ``plane.enabled``: 128 landmark and 32 line slots, 16 satellites, on
+    :func:`dryrun_core`)."""
+    import dataclasses
+
+    from ground_fusion_tpu_torch.config import Config, load_yaml
+
+    rep = dataclasses.replace
+    if width == "full":
+        m2 = load_yaml(os.path.join(ROOT, "configs", "m2dgrp.yaml"))
+        return {"groundchallenge": load_yaml(os.path.join(ROOT, "configs", "groundchallenge.yaml")),
+                "m2dgrp_lines": rep(m2, use_line=True, plane=rep(m2.plane, enabled=True))}
+    cfg = Config()
+    jax_cfg = rep(cfg, plane=rep(cfg.plane, enabled=True), solver=rep(
+        cfg.solver, window_size=4, max_landmarks=16, max_imu_per_interval=8,
+        max_wheel_per_interval=8, max_iters=2))
+    full = rep(jax_cfg, use_line=True, lines=rep(cfg.lines, max_lines=2, min_obs=3),
+               gnss=rep(cfg.gnss, enabled=True, max_sats=4))
+    return {"jax": jax_cfg, "full": full,
+            "dense": rep(full, solver=rep(full.solver, linear_solver="dense")),
+            "lm": rep(full, solver=rep(full.solver, method="lm"))}
+
+
+def shard_case(name: str, cfg, dtype, device):
+    """The starting core of a case of :func:`shard_step_cases` and its
+    flags for a branch: ``(core, flags_of(marg_old))``."""
+    if name == "groundchallenge":
+        core, flags = filled_core(cfg, dtype, device)
+        return core, lambda marg_old: flags._replace(marg_old=marg_old)
+    return (dryrun_core(cfg, dtype, device)[0],
+            lambda marg_old: dryrun_flags(cfg, dtype, device, marg_old))
+
+
+# the steps of a case: (branch, start) with start the index of the step whose
+# result the step starts from (None: the case's core); the first two are the
+# oracle's two branches from one core, the last two go on from the keyframe
+# step's core, whose prior is valid (prior rows; line triangulation)
+SHARD_CHAIN = ((True, None), (False, None), (True, 0), (False, 0))
+
+
+def _flat_arrays(tree, prefix: str) -> dict:
+    """A core or an output dict → ``{prefix + dotted path: numpy array}``."""
+    from ground_fusion_tpu_torch.utils.checkpoint import core_to_arrays
+
+    if isinstance(tree, dict):
+        return {f"{prefix}{k}": v.detach().cpu().numpy() for k, v in tree.items()}
+    return core_to_arrays(tree, prefix)
+
+
+def run_step_cases(rank: int, width: str, dev, core_path: str = "") -> dict:
+    """The window-step half of a shard rank: for each case of
+    :func:`shard_step_cases` the steps of :data:`SHARD_CHAIN` through the
+    landmark-sharded step (at full width its first three, to keep 12d near
+    a minute; ``dense`` and ``lm`` the first two), in float64 and, at full
+    width, the second-new branch once more in float32 (there the keyframe
+    branch's prior square root can meet an ``eigh`` that does not converge,
+    on the CPU). Records each step's output and replicated core, the whole
+    slid tables (:func:`gather_core`), the reductions and the ms (CUDA
+    events on the card). Then the same steps through the unsharded
+    step, with their ms, outputs and cores: at full width on rank 0 alone
+    (so that nothing else runs on the card while they are timed), at small
+    width each case's on one rank in turn. At small width it also checks
+    ``gather_core(shard_core(core))`` and the divisibility errors. With
+    ``core_path`` (an npz of ``core.*`` and ``flags.*`` arrays) the one case
+    is the default config on that core, both branches from it
+    (``tests/test_parallel.py``'s oracle)."""
+    import numpy as np
+    import torch
+
+    from ground_fusion_tpu_torch.config import Config
+    from ground_fusion_tpu_torch.estimator.step import make_window_step
+    from ground_fusion_tpu_torch.parallel import sharded
+    from ground_fusion_tpu_torch.utils.checkpoint import core_from_arrays
+
+    def timed(fn, *args):
+        if dev.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            return out, start.elapsed_time(end)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def run_chain(step, core0, flags_of, chain, key0, record):
+        done = []
+        for k, (marg_old, start) in enumerate(chain):
+            (core, out), ms = timed(step, core0 if start is None else done[start],
+                                    flags_of(marg_old))
+            done.append(core)
+            record(f"{key0}.{k}.", step, core, out, ms)
+
+    f64 = torch.float64
+    world = sharded._rank_world(None)[1]
+    group = sharded.make_lm_mesh(world)
+    if core_path:
+        cfg = Config()
+        with np.load(core_path, allow_pickle=False) as z:
+            data = {k: z[k] for k in z.files}
+        core0 = core_from_arrays(data, dryrun_core(cfg, f64, dev)[0], prefix="core.")
+        flags = dryrun_flags(cfg, f64, dev, True)._replace(
+            propagate_newest=torch.tensor(False, device=dev),
+            **{n: torch.as_tensor(data["flags." + n], device=dev)
+               for n in ("wheel_valid", "imu_valid")})
+        runs = [("oracle", cfg, core0, lambda m: flags._replace(marg_old=m), SHARD_CHAIN[:2])]
+    else:
+        runs = []
+        for name, cfg in shard_step_cases(width).items():
+            for dtype in ((f64, torch.float32) if width == "full" else (f64,)):
+                chain = (SHARD_CHAIN[1:2] if dtype != f64 else SHARD_CHAIN[:2]
+                         if name in ("dense", "lm") else SHARD_CHAIN[:3]
+                         if width == "full" else SHARD_CHAIN)
+                runs.append((name if dtype == f64 else name + "_f32", cfg,
+                             *shard_case(name, cfg, dtype, dev), chain))
+    res = {}
+
+    def record_sharded(key, step, local, out, ms):
+        res[key + "ms"] = ms
+        res[key + "reductions"] = step.reductions
+        res.update(_flat_arrays(out, key + "out."))
+        res.update(_flat_arrays(local._replace(tracks=None, lines=None), key + "rep."))
+        whole = sharded.gather_core(local, group)
+        res.update(_flat_arrays(whole.tracks, key + "whole.tracks."))
+        if whole.lines is not None:
+            res.update(_flat_arrays(whole.lines, key + "whole.lines."))
+
+    def record_single(key, step, core, out, ms):
+        res[key + "single_ms"] = ms
+        res.update(_flat_arrays(out, key + "single.out."))
+        res.update(_flat_arrays(core, key + "single.core."))
+
+    for name, cfg, core0, flags_of, chain in runs:
+        step, _ = sharded.make_sharded_window_step(cfg, dev, group)
+        local0 = sharded.shard_core(core0, group)
+        run_chain(step, local0, flags_of, chain, name, record_sharded)
+        if width == "small" and name == "full":
+            back = sharded.gather_core(local0, group)
+            res["roundtrip_equal"] = all(
+                torch.equal(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(back),
+                                                  torch.utils._pytree.tree_leaves(core0)))
+            for what, odd in (("ml", core0._replace(tracks=_resized(core0.tracks, 3))),
+                              ("ll", core0._replace(lines=_resized(core0.lines, 3)))):
+                try:
+                    sharded.shard_core(odd, group)
+                    res[f"error_{what}"] = ""
+                except ValueError as err:
+                    res[f"error_{what}"] = str(err)
+            try:
+                sharded.make_lm_mesh(world + 1)
+                res["error_mesh"] = ""
+            except ValueError as err:
+                res["error_mesh"] = str(err)
+    singles = [run for run in runs if run[0] not in ("jax", "oracle")]
+    for i, (name, cfg, core0, flags_of, chain) in enumerate(singles):
+        if rank == (i % world if width == "small" else 0):
+            run_chain(make_window_step(cfg, dev)[0], core0, flags_of, chain, name, record_single)
+    return res
+
+
+def prior_gap(J, r, J_ref, r_ref) -> float:
+    """The prior's information J0ᵀJ0 and gradient J0ᵀr0 against a
+    reference's: the larger of the two largest differences, each over its
+    bound, :data:`SHARD_PRIOR_TOL` or :data:`SHARD_STEP_TOL` of the
+    reference's scale where that is larger (summing the same rows in
+    another order moves an information of scale 3e6 by ~2e-4 in float64);
+    at most 1 passes."""
+    import numpy as np
+
+    gaps = []
+    for a, b in ((J.T @ J, J_ref.T @ J_ref), (J.T @ r, J_ref.T @ r_ref)):
+        bound = max(SHARD_PRIOR_TOL, SHARD_STEP_TOL * float(np.abs(b).max()))
+        gaps.append(float(np.abs(a - b).max()) / bound)
+    return max(gaps)
+
+
+def shard_step_gaps(ranks, case: str) -> dict:
+    """A case of :func:`run_step_cases` against the unsharded step: the
+    largest differences of the solved poses, the slid inverse depths and
+    line coordinates, the prior's :func:`prior_gap`, whether the slot masks
+    are equal, and whether every rank's output and replicated core is
+    bitwise rank 0's."""
+    import numpy as np
+
+    r0 = ranks[0]
+    single = {}
+    for res in ranks:
+        single.update({k: v for k, v in res.items() if ".single." in k})
+    steps = sorted({int(k.split(".")[1]) for k in r0 if k.startswith(case + ".")})
+    gap = dict(poses=0.0, depth=0.0, orth=0.0, prior=0.0, masks=True, ranks=True)
+    for k in steps:
+        p = f"{case}.{k}."
+        gap["poses"] = max(gap["poses"], float(np.abs(
+            r0[p + "out.poses"] - single[p + "single.out.poses"]).max()))
+        for table, field, name in (("tracks", "inv_depth", "depth"), ("lines", "orth", "orth")):
+            if f"{p}whole.{table}.{field}" in r0:
+                gap[name] = max(gap[name], float(np.abs(
+                    r0[f"{p}whole.{table}.{field}"] - single[f"{p}single.core.{table}.{field}"]).max()))
+                gap["masks"] &= all(np.array_equal(r0[f"{p}whole.{table}.{m}"],
+                                                   single[f"{p}single.core.{table}.{m}"])
+                                    for m in ("active", "solve_ok"))
+        gap["prior"] = max(gap["prior"], prior_gap(
+            r0[p + "rep.prior.J0"], r0[p + "rep.prior.r0"],
+            single[p + "single.core.prior.J0"], single[p + "single.core.prior.r0"]))
+        gap["ranks"] &= all(np.array_equal(r0[key], res[key]) for res in ranks[1:]
+                            for key in r0 if key.startswith(p) and ".single." not in key
+                            and (".out." in key or ".rep." in key))
+    return gap
+
+
+def phase_checkpoint_landmarks(torch, work_dir, device="cuda"):
+    """12d: the landmark-sharded window step on two Gloo ranks on one
+    device, full width, float64: ``groundchallenge.yaml`` on the filled core
+    and ``m2dgrp.yaml`` with lines and the plane on the dryrun's core, each
+    through :data:`SHARD_CHAIN` against the unsharded step (rank 0):
+    poses, depths and line coordinates to 1e-8, the prior by
+    :func:`prior_gap`, slot masks equal, the ranks bitwise equal; ms per
+    step of both (CUDA events), reductions per step; float32 printed, not
+    gated."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    try:
+        ranks = run_shard_pair(work_dir, device, step="full")
+    except (RuntimeError, subprocess.TimeoutExpired) as err:
+        fail(f"shard step: {err}")
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r, res in enumerate(ranks):
+        check(str(res["device"]).startswith(device), f"shard step: rank {r} ran on {res['device']}")
+    parts = []
+    for case in shard_step_cases("full"):
+        gap = shard_step_gaps(ranks, case)
+        for name in ("poses", "depth", "orth"):
+            check(gap[name] <= SHARD_STEP_TOL, f"shard step: {case} {name} off by {gap[name]:.3e}")
+        check(gap["prior"] <= 1.0, f"shard step: {case} prior {gap['prior']:.3e} of its bound")
+        check(gap["masks"] and gap["ranks"], f"shard step: {case} masks {gap['masks']}, "
+                                             f"ranks bitwise equal {gap['ranks']}")
+        n = len({key.split(".")[1] for key in r0 if key.startswith(case + ".")})
+        ms = [float(r0[f"{case}.{k}.ms"]) for k in range(n)]
+        ms1 = [float(r0[f"{case}.{k}.single_ms"]) for k in range(n)]
+        red = [int(r0[f"{case}.{k}.reductions"]) for k in range(n)]
+        f32 = {k: float(np.abs(r0[f"{case}_f32.0.out.{k}"] - r0[f"{case}_f32.0.single.out.{k}"]).max())
+               for k in ("poses", "cost")}
+        parts.append(
+            f"{case}: sharded {np.median(ms):.1f} ms a step (median of {n}; {', '.join(f'{m:.1f}' for m in ms)}) "
+            f"against unsharded {np.median(ms1):.1f} ({', '.join(f'{m:.1f}' for m in ms1)}); "
+            f"reductions per step {red}; largest differences poses {gap['poses']:.3e}, "
+            f"depths {gap['depth']:.3e}, line coordinates {gap['orth']:.3e}, prior "
+            f"{gap['prior']:.3e} of its bound; float32 (second-new branch, not gated): poses "
+            f"{f32['poses']:.3e}, cost {f32['cost']:.3e}")
+    print(f"shard step: {SHARD_WORLD} Gloo ranks on {device}, float64 ({wall:.1f} s with "
+          f"start-up): " + "; ".join(parts), flush=True)
+
+
+def _resized(table, n: int):
+    """A landmark or line table of ``n`` slots: its slots repeated, cut."""
+    import torch
+
+    return type(table)(*[torch.cat([t] * n)[:n] for t in table])
+
+
 def shard_worker(rank: int, world: int, address: str, device: str, out_path: str,
-                 fleet: str) -> None:
-    """One rank of phase 12c (and of tests/test_torch_sharded.py): the
-    edge-sharded graph of :func:`sharded_graph_problem` and, against it, the
+                 fleet: str, step: str = "") -> None:
+    """One rank of phase 12c-d (and of tests/test_torch_sharded.py and
+    tests/test_torch_sharded_step.py). Without ``step``: the edge-sharded
+    graph of :func:`sharded_graph_problem` and, against it, the
     single-device ``optimize_4dof`` on this rank's device; ``shard_edges``'s
     rows; the divisibility error; with ``fleet`` ("default" or "small") the
     sharded fleet of 4 filled cores over 2 steps against the unsharded fleet
-    (on rank 0). Writes its results to ``out_path``."""
+    (on rank 0). With ``step`` ("small", "full", or the path of an oracle
+    core): the landmark-sharded window step of :func:`run_step_cases`.
+    Writes its results to ``out_path``."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -2916,6 +3327,14 @@ def shard_worker(rank: int, world: int, address: str, device: str, out_path: str
     dev = sharded.init_group(rank, world, address, backend="gloo",
                              device=None if device == "cuda" else device)
     res = {"device": np.asarray(str(dev))}
+    if step:
+        if step in ("small", "full"):
+            res.update(run_step_cases(rank, step, dev))
+        else:
+            res.update(run_step_cases(rank, "", dev, core_path=step))
+        sharded.close_group()
+        np.savez(out_path, **res)
+        return
     prob = sharded_graph_problem(np)
     f64 = dict(dtype=torch.float64, device=dev)
     edges = GraphEdges(*[torch.as_tensor(prob[name]).to(device=dev, dtype=torch.int64)
@@ -2984,22 +3403,22 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_shard_pair(work_dir: str, device: str = "cuda", fleet: str = "",
-                   timeout_s: float = SHARD_TIMEOUT_S) -> list:
-    """Start SHARD_WORLD processes of :func:`shard_worker` on ``device``
-    with Gloo (two ranks share one card), wait for them with a timeout, and
+def run_shard_pair(work_dir: str, device: str = "cuda", fleet: str = "", step: str = "",
+                   world: int = SHARD_WORLD, timeout_s: float = SHARD_TIMEOUT_S) -> list:
+    """Start ``world`` (two) processes of :func:`shard_worker` on ``device``
+    with Gloo (ranks share one card), wait for them with a timeout, and
     return each rank's results (dicts of numpy values). Raises when a rank
     fails or times out; no process outlives the call."""
     import numpy as np
 
     address = f"tcp://localhost:{_free_port()}"
-    outs = [os.path.join(work_dir, f"shard_rank{r}.npz") for r in range(SHARD_WORLD)]
+    outs = [os.path.join(work_dir, f"shard_rank{r}.npz") for r in range(world)]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--shard-worker", str(r),
-         str(SHARD_WORLD), address, device, outs[r], fleet],
+         str(world), address, device, outs[r], fleet, step],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-        for r in range(SHARD_WORLD)]
+        for r in range(world)]
     logs, deadline = [], time.monotonic() + timeout_s
     try:
         for p in procs:
@@ -3056,6 +3475,7 @@ def phase_checkpoint(torch, work_dir):
     counts = phase_checkpoint_cli(torch, work_dir)
     reloc = phase_checkpoint_reloc(torch, work_dir)
     phase_checkpoint_shard(torch, work_dir)
+    phase_checkpoint_landmarks(torch, work_dir)
     return {k: counts[k] + reloc[k] for k in counts}
 
 
@@ -3716,7 +4136,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard-worker"]:
-        rank, world, address, device, out_path, *fleet = sys.argv[2:]
-        shard_worker(int(rank), int(world), address, device, out_path, fleet[0] if fleet else "")
+        rank, world, address, device, out_path, *rest = sys.argv[2:] + ["", ""]
+        shard_worker(int(rank), int(world), address, device, out_path, rest[0], rest[1])
         sys.exit(0)
     sys.exit(main())

@@ -18,6 +18,14 @@ The GNSS rows (pseudorange/Doppler and the receiver clock chain, built in
 :mod:`..gnss.factors`), the first-solve pose anchor and the line rows
 (:mod:`.lines`, 4 columns per line after the depths) join when the inputs
 carry them.
+
+The rows fall in two groups. The landmark rows (visual, lines) touch their
+own landmark's or line's columns; every other row (IMU, wheel, plane, prior,
+pose anchor, GNSS and the clock chain) touches the camera block alone. With
+the landmark slots split over ranks (``parallel/sharded.py``) each rank
+builds the rows of its own landmarks, and ``replicated=False`` leaves the
+other group out on all ranks but one, so that it enters the summed normal
+equations once.
 """
 
 from __future__ import annotations
@@ -315,23 +323,27 @@ class SolveInputs(NamedTuple):
 
 def assemble_rows(state: WindowState, tracks: Tracks, inp: SolveInputs,
                   layout: StateLayout, sqrt_info_scale, cauchy_delta,
-                  plane_sqrt_info):
-    """Linearize every factor class at ``state`` → stacked dense rows."""
-    Ji, ri = linearize_imu(state, inp.imu_pre, inp.imu_valid, inp.g, layout)
-    Jw, rw = linearize_wheel(state, inp.wheel_pre, inp.wheel_valid, layout)
-    Jv, rv = linearize_visual(
+                  plane_sqrt_info, replicated: bool = True):
+    """Linearize every factor class at ``state`` → stacked dense rows;
+    with ``replicated=False`` the landmark rows only (visual, lines). The
+    rows keep one order either way."""
+    rows = []
+    if replicated:
+        rows.append(linearize_imu(state, inp.imu_pre, inp.imu_valid, inp.g, layout))
+        rows.append(linearize_wheel(state, inp.wheel_pre, inp.wheel_valid, layout))
+    rows.append(linearize_visual(
         state, tracks, inp.td_obs, layout, sqrt_info_scale, cauchy_delta
-    )
-    Jp, rp = linearize_plane(state, inp.plane_valid, plane_sqrt_info, layout)
-    Jm, rm = linearize_prior(state, inp.prior, layout)
-    rows = [(Ji, ri), (Jw, rw), (Jv, rv), (Jp, rp), (Jm, rm)]
-    if inp.gnss_obs is not None:
+    ))
+    if replicated:
+        rows.append(linearize_plane(state, inp.plane_valid, plane_sqrt_info, layout))
+        rows.append(linearize_prior(state, inp.prior, layout))
+    if replicated and inp.gnss_obs is not None:
         from ..gnss.factors import linearize_clock_chain, linearize_gnss_psr_dopp
 
         rows.append(linearize_gnss_psr_dopp(state, inp.gnss_obs, inp.gnss_ready, layout))
         rows.append(linearize_clock_chain(state, inp.frame_dts, inp.gnss_ready,
                                           inp.ddt_weight, layout))
-    if inp.anchor_pose is not None:
+    if replicated and inp.anchor_pose is not None:
         rows.append(linearize_pose_anchor(state, inp.anchor_pose, inp.anchor_active, layout))
     if inp.lines is not None:
         from .lines import linearize_lines
@@ -351,11 +363,12 @@ def normal_equations(J: Tensor, r: Tensor):
 
 def assemble_residuals(state: WindowState, tracks: Tracks, inp: SolveInputs,
                        layout: StateLayout, sqrt_info_scale, cauchy_delta,
-                       plane_sqrt_info):
+                       plane_sqrt_info, replicated: bool = True):
     """Residual-only evaluation (no Jacobians, no dense scatter) — the cheap
     cost probe for trust-region accept/reject; must match
-    :func:`assemble_rows`'s whitening + robust reweighting exactly. The
-    residual functions broadcast over the factor axis, so no vmap is needed.
+    :func:`assemble_rows`'s whitening + robust reweighting exactly (and its
+    ``replicated`` split). The residual functions broadcast over the factor
+    axis, so no vmap is needed.
     """
     dtype, dev = state.poses.dtype, state.poses.device
     parts = []
@@ -363,20 +376,21 @@ def assemble_residuals(state: WindowState, tracks: Tracks, inp: SolveInputs,
     def masked(r, ok):
         return torch.where(ok[:, None], r, torch.zeros_like(r)).reshape(-1)
 
-    # IMU
-    pre = _tail(inp.imu_pre)
-    S = sqrt_info_from_cov(pre.covariance)
-    ri = imu_residual_raw(state.poses[:-1], state.sbs[:-1], state.poses[1:], state.sbs[1:],
-                          pre, inp.g)
-    parts.append(masked((S @ ri[..., None])[..., 0], inp.imu_valid[1:]))
+    if replicated:
+        # IMU
+        pre = _tail(inp.imu_pre)
+        S = sqrt_info_from_cov(pre.covariance)
+        ri = imu_residual_raw(state.poses[:-1], state.sbs[:-1], state.poses[1:],
+                              state.sbs[1:], pre, inp.g)
+        parts.append(masked((S @ ri[..., None])[..., 0], inp.imu_valid[1:]))
 
-    # wheel
-    wpre = _tail(inp.wheel_pre)
-    sx, sy, sw = state.s_wheel[0], state.s_wheel[1], state.s_wheel[2]
-    S = sqrt_info_from_cov(wpre.covariance)
-    dp, dq = wheel_corrected_delta(wpre, sx, sy, sw, state.td_wheel)
-    rw = wheel_residual_from_delta(state.poses[:-1], state.poses[1:], state.ex_wheel, dp, dq)
-    parts.append(masked((S @ rw[..., None])[..., 0], inp.wheel_valid[1:]))
+        # wheel
+        wpre = _tail(inp.wheel_pre)
+        sx, sy, sw = state.s_wheel[0], state.s_wheel[1], state.s_wheel[2]
+        S = sqrt_info_from_cov(wpre.covariance)
+        dp, dq = wheel_corrected_delta(wpre, sx, sy, sw, state.td_wheel)
+        rw = wheel_residual_from_delta(state.poses[:-1], state.poses[1:], state.ex_wheel, dp, dq)
+        parts.append(masked((S @ rw[..., None])[..., 0], inp.wheel_valid[1:]))
 
     # visual
     ls, si, js, valid = _visual_pairs(tracks, 4, None)
@@ -394,27 +408,28 @@ def assemble_residuals(state: WindowState, tracks: Tracks, inp: SolveInputs,
     w = cauchy_weight(torch.sum(rv * rv, dim=-1), cauchy_delta)[:, None]
     parts.append(masked(rv * w, valid))
 
-    # plane
-    rp = plane_sqrt_info * plane_residual_raw(
-        state.poses, state.ex_wheel, state.plane_q, state.plane_z)
-    parts.append(masked(rp, inp.plane_valid))
+    if replicated:
+        # plane
+        rp = plane_sqrt_info * plane_residual_raw(
+            state.poses, state.ex_wheel, state.plane_q, state.plane_z)
+        parts.append(masked(rp, inp.plane_valid))
 
-    # prior
-    dx = boxminus(state, inp.prior.lin, layout)
-    parts.append((inp.prior.r0 + inp.prior.J0 @ dx) * inp.prior.valid.to(dtype))
+        # prior
+        dx = boxminus(state, inp.prior.lin, layout)
+        parts.append((inp.prior.r0 + inp.prior.J0 @ dx) * inp.prior.valid.to(dtype))
 
-    # GNSS
-    if inp.gnss_obs is not None:
-        from ..gnss.factors import clock_chain_residuals, gnss_psr_dopp_residuals
+        # GNSS
+        if inp.gnss_obs is not None:
+            from ..gnss.factors import clock_chain_residuals, gnss_psr_dopp_residuals
 
-        parts.append(gnss_psr_dopp_residuals(state, inp.gnss_obs, inp.gnss_ready))
-        parts.append(clock_chain_residuals(state, inp.frame_dts, inp.gnss_ready,
-                                           inp.ddt_weight))
+            parts.append(gnss_psr_dopp_residuals(state, inp.gnss_obs, inp.gnss_ready))
+            parts.append(clock_chain_residuals(state, inp.frame_dts, inp.gnss_ready,
+                                               inp.ddt_weight))
 
-    # pose0 anchor
-    if inp.anchor_pose is not None:
-        ra = POSE_ANCHOR_SQRT_INFO * pose_anchor_residual_raw(state.poses[0], inp.anchor_pose)
-        parts.append(ra * inp.anchor_active.to(dtype))
+        # pose0 anchor
+        if inp.anchor_pose is not None:
+            ra = POSE_ANCHOR_SQRT_INFO * pose_anchor_residual_raw(state.poses[0], inp.anchor_pose)
+            parts.append(ra * inp.anchor_active.to(dtype))
 
     # lines
     if inp.lines is not None:

@@ -98,7 +98,7 @@ def newest_wheel_anomaly(state: WindowState, imu_pre, wheel_pre, g,
 def device_frame_gates(state: WindowState, tracks: Tracks, imu_buf, imu_pre,
                        wheel_pre, g: Tensor, focal: float,
                        acc_var_thresh: float, parallax_px_thresh: float,
-                       wheel_dp_thresh: float, anomaly_thresh: float):
+                       wheel_dp_thresh: float, anomaly_thresh: float, reduce=None):
     """Device twin of the per-frame anomaly/stationarity detection over the
     newest interval (``estimator.cpp:614-654, 870-896``), computed from the
     window buffers/preintegrations already on device.
@@ -111,6 +111,10 @@ def device_frame_gates(state: WindowState, tracks: Tracks, imu_buf, imu_pre,
         estimator.cpp:3132-3136 — documented divergence);
       - stationary: 2-of-3 vote over accel variance, tracked parallax
         between the two newest frames, and ‖ΔP_wheel‖ of the newest interval.
+
+    With the landmark slots split over ranks (``reduce``, as in
+    :func:`.solver.solve_window`) the parallax vote's count and sum run over
+    every rank's landmarks (one reduction).
     """
     f = state.poses.shape[0]
     anomaly = newest_wheel_anomaly(state, imu_pre, wheel_pre, g, anomaly_thresh)
@@ -130,7 +134,10 @@ def device_frame_gates(state: WindowState, tracks: Tracks, imu_buf, imu_pre,
     both = tracks.active & tracks.obs_valid[:, f - 2] & tracks.obs_valid[:, f - 1]
     d = tracks.obs[:, f - 1, 0:2] - tracks.obs[:, f - 2, 0:2]
     n_both = torch.sum(both)
-    par = torch.sum(torch.linalg.norm(d, dim=-1) * both) / torch.clamp(n_both, min=1)
+    par_sum = torch.sum(torch.linalg.norm(d, dim=-1) * both)
+    if reduce is not None:
+        n_both, par_sum = reduce(n_both.to(par_sum.dtype), par_sum)
+    par = par_sum / torch.clamp(n_both, min=1)
     v_vis = (par * focal < parallax_px_thresh) & (n_both > 0)
 
     # vote 3: wheel dead-reckoned translation

@@ -17,6 +17,15 @@ three matmuls, one small ``eigh`` and one Cholesky on static shapes:
 
 The address-shift across the slide (``estimator.cpp:3500-3528``) becomes a
 static column permutation into the post-slide layout.
+
+With the landmark slots split over ranks (``reduce``, as in
+:func:`.solver.solve_window`) each rank eliminates the depths and lines of
+its own frame-0-anchored slots, rank 0 adds the rows that touch the camera
+block alone, and the reduced systems ``Hred``, ``bred`` are summed (one
+reduction). The frame-0 elimination and the square root then run on every
+rank from the same sums; the all-reduce hands every rank the same bits, so
+the ranks' factors are equal without a broadcast (two ranks on one H100,
+``chip_smoke.py`` phase 12d).
 """
 
 from __future__ import annotations
@@ -118,6 +127,7 @@ def marginalize_old(
     cauchy_delta,
     plane_sqrt_info,
     lines=None,
+    reduce=None,
 ) -> MargPrior:
     """Drop frame 0 (pose+speed-bias) and the depths of landmarks anchored
     there; return the prior already permuted into the POST-slide layout with
@@ -135,20 +145,24 @@ def marginalize_old(
     ar = torch.arange(f, device=dev)
     only1 = ar == 1
     only0 = ar == 0
-    Ji, ri = linearize_imu(state, inp.imu_pre, inp.imu_valid & only1, inp.g, layout)
-    Jw, rw = linearize_wheel(state, inp.wheel_pre, inp.wheel_valid & only1, layout)
+    replicated = reduce is None or reduce.rank == 0
+    rows = []
+    if replicated:
+        rows.append(linearize_imu(state, inp.imu_pre, inp.imu_valid & only1, inp.g, layout))
+        rows.append(linearize_wheel(state, inp.wheel_pre, inp.wheel_valid & only1, layout))
     anchored0 = tracks.active & (tracks.start_frame == 0)
-    Jv, rv = linearize_visual(
+    rows.append(linearize_visual(
         state, tracks, inp.td_obs, layout, sqrt_info_scale, cauchy_delta,
         lm_filter=anchored0,
-    )
-    Jp, rp = linearize_plane(state, inp.plane_valid & only0, plane_sqrt_info, layout)
-    Jm, rm = linearize_prior(state, inp.prior, layout)
-    # very first marginalization (no prior yet): seed with a pose0 anchor at
-    # its current value instead of the prior factor (estimator.cpp:3562-3570)
-    Ja, ra = linearize_pose_anchor(state, state.poses[0], ~inp.prior.valid, layout)
-    rows = [(Ji, ri), (Jw, rw), (Jv, rv), (Jp, rp), (Jm, rm), (Ja, ra)]
-    if inp.gnss_obs is not None:
+    ))
+    if replicated:
+        rows.append(linearize_plane(state, inp.plane_valid & only0, plane_sqrt_info, layout))
+        rows.append(linearize_prior(state, inp.prior, layout))
+        # very first marginalization (no prior yet): seed with a pose0 anchor
+        # at its current value instead of the prior factor
+        # (estimator.cpp:3562-3570)
+        rows.append(linearize_pose_anchor(state, state.poses[0], ~inp.prior.valid, layout))
+    if replicated and inp.gnss_obs is not None:
         # GNSS factors of the dropped frame: slot-0 epochs + clock pair (0,1)
         # (estimator.cpp:3398-3434)
         from ..gnss.factors import linearize_clock_chain, linearize_gnss_psr_dopp
@@ -192,6 +206,8 @@ def marginalize_old(
         inv = _clipped_pinv(Hnn)
         Hred = Hred - torch.einsum("lca,lab,ldb->cd", Hcn, inv, Hcn)
         bred = bred - torch.einsum("lca,lab,lb->c", Hcn, inv, bn)
+    if reduce is not None:
+        Hred, bred = reduce(Hred, bred)
 
     # drop set: pose0+sb0 tangent (15) + frame-0 GNSS clock dt (4) and ddt (1)
     # (estimator.cpp:3351-3420 drop_set construction)

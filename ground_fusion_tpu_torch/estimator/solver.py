@@ -21,6 +21,22 @@ factorization that returns NaN.
 Gauge handling matches ``double2vector`` (``estimator.cpp:2440-2569``): after
 the solve, yaw and position of frame 0 are re-anchored to their pre-solve
 values by a rigid yaw-rotation + translation of the whole window.
+
+**Landmark shards.** ``reduce`` (default None: one rank holds every
+landmark) runs the same loop with the landmark and line slots split over
+ranks (``parallel/sharded.py``). It is a callable that sums tensors over the
+ranks in one packed reduction, with attributes ``rank`` and ``world``. Each
+rank holds a view of the system: the camera block ``[:nx]`` of ``H`` and
+``g`` summed over the ranks (the same on every rank), and the columns of its
+own landmarks and lines, which no other rank's rows touch. The sums that
+couple the shards go through ``reduce``: the camera block and the cost of
+each linearization, the Schur down-dates, the trial cost, and the dogleg's
+inner products (:func:`_products`); depth and line elimination and their
+back-substitution stay on the rank. A dogleg iteration sums five times (the
+linearization; the down-dates; ``|g|²`` with ``gᵀHg``; the five products of
+the blend; the trial cost with the gain ratio's ``g·δ``, ``δᵀHδ`` and
+``|δ|``), an LM iteration three. Every rank decides accept and reject on
+the summed cost, so all ranks keep one state.
 """
 
 from __future__ import annotations
@@ -59,6 +75,49 @@ def _cho_solve_or_nan(A: Tensor, b: Tensor) -> Tensor:
     return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
+def _reduce_camera(H: Tensor, g: Tensor, cost: Tensor, nx: int, reduce):
+    """Sum the camera block of this rank's normal equations, and its cost,
+    over the ranks (one reduction); the landmark blocks stay the rank's."""
+    Hcc, gc, cost = reduce(H[:nx, :nx], g[:nx], cost)
+    H = torch.cat([torch.cat([Hcc, H[:nx, nx:]], dim=1), H[nx:]], dim=0)
+    return H, torch.cat([gc, g[nx:]]), cost
+
+
+def _products(terms, H: Tensor, nx: int, reduce=None) -> list:
+    """Scalars over the whole tangent vector: ``("dot", a, b)`` is a·b,
+    ``("norm", a)`` is |a|, ``("quad", a)`` is a·(H a) and ``("sum", s)``
+    a scalar that the ranks sum. On one rank each is computed as it reads.
+    With ``reduce`` the vectors are this rank's view (camera block
+    replicated, the rest its shard): each product is its camera part plus
+    the ranks' shard parts, all summed in one reduction; a quadratic form's
+    shard part is ``2 a_cᵀ H_cd a_d + a_dᵀ H_dd a_d``."""
+    if reduce is None:
+        out = []
+        for kind, a, *b in terms:
+            out.append(a @ b[0] if kind == "dot" else torch.linalg.norm(a) if kind == "norm"
+                       else a @ (H @ a) if kind == "quad" else a)
+        return out
+    cam, shard = [], []
+    for kind, a, *b in terms:
+        if kind == "sum":
+            cam.append(torch.zeros_like(a))
+            shard.append(a)
+            continue
+        ac, ad = a[:nx], a[nx:]
+        if kind == "dot":
+            cam.append(ac @ b[0][:nx])
+            shard.append(ad @ b[0][nx:])
+        elif kind == "norm":
+            cam.append(ac @ ac)
+            shard.append(ad @ ad)
+        else:
+            cam.append(ac @ (H[:nx, :nx] @ ac))
+            shard.append(2.0 * (ac @ (H[:nx, nx:] @ ad)) + ad @ (H[nx:, nx:] @ ad))
+    (summed,) = reduce(torch.stack(shard))
+    total = torch.stack(cam) + summed
+    return [torch.sqrt(v) if kind == "norm" else v for (kind, *_), v in zip(terms, total)]
+
+
 def _solve_delta(H, g, lam, free_mask):
     """(H + λ·diag(H) + εI) δ = -g, frozen columns pinned to zero."""
     damp = lam * torch.diagonal(H) + 1e-8
@@ -68,14 +127,45 @@ def _solve_delta(H, g, lam, free_mask):
     return _cho_solve_or_nan(Hd, -g) * free_mask
 
 
-def _solve_delta_schur(H, g, lam, free_mask, layout: StateLayout):
+def _whole_columns(layout: StateLayout, rank: int, world: int, device) -> Tensor:
+    """This rank's columns in the tangent vector of all ranks' slots: the
+    camera block, then its depths and its lines among all ranks'."""
+    nx, ml, ll = layout.nx, layout.max_landmarks, layout.max_lines
+    ar = lambda n: torch.arange(n, device=device)
+    return torch.cat([ar(nx), nx + rank * ml + ar(ml),
+                      nx + world * ml + 4 * rank * ll + ar(4 * ll)])
+
+
+def _solve_delta_whole(H, g, lam, free_mask, layout: StateLayout, reduce):
+    """:func:`_solve_delta` over landmark shards: each rank writes its view
+    into a zero-padded system of all ranks' columns (the camera block from
+    rank 0 only), the ranks sum them (one reduction) and every rank solves
+    the whole system, keeping its own columns of the step. Correct, not
+    fast: the reduction carries the whole ``total × total`` matrix."""
+    nx = layout.nx
+    cols = _whole_columns(layout, reduce.rank, reduce.world, H.device)
+    total = nx + reduce.world * (layout.max_landmarks + 4 * layout.max_lines)
+    own = torch.ones(H.shape[0], dtype=H.dtype, device=H.device)
+    if reduce.rank:
+        own[:nx] = 0.0
+    Hw = torch.zeros((total, total), dtype=H.dtype, device=H.device)
+    Hw[cols[:, None], cols[None, :]] = H * torch.maximum(own[:, None], own[None, :])
+    gw = torch.zeros(total, dtype=g.dtype, device=g.device).index_copy(0, cols, g * own)
+    fw = torch.zeros(total, dtype=g.dtype, device=g.device).index_copy(0, cols, free_mask * own)
+    Hw, gw, fw = reduce(Hw, gw, fw)
+    return _solve_delta(Hw, gw, lam, fw)[cols]
+
+
+def _solve_delta_schur(H, g, lam, free_mask, layout: StateLayout, reduce=None):
     """Same damped system solved via the Schur complement (ceres
     ``DENSE_SCHUR``): landmark inverse-depth columns are mutually-orthogonal
     scalar blocks and line blocks are independent 4×4s, so eliminating them
     costs two batched down-dates and shrinks the Cholesky from
     ``total×total`` to ``nx×nx``. The line blocks' solves are the unrolled,
     pivot-clamped 4×4 Cholesky of :func:`.lines._solve_spd4`, batched over
-    lines and camera columns."""
+    lines and camera columns. Over landmark shards each rank eliminates its
+    own depths and lines, the down-dates are summed (one reduction) and
+    every rank solves the reduced camera system."""
     nx, ml, ll = layout.nx, layout.max_landmarks, layout.max_lines
     damp = lam * torch.diagonal(H) + 1e-8 + (1.0 - free_mask)
     Hd = H + torch.diag(damp)
@@ -89,8 +179,7 @@ def _solve_delta_schur(H, g, lam, free_mask, layout: StateLayout):
     hdd = torch.diagonal(Hd)[nx : nx + ml]
     bd = gn[nx : nx + ml]
     wd = 1.0 / hdd                                   # damped ⇒ > 0
-    Hcc = Hcc - (Hcd * wd[None, :]) @ Hcd.T
-    bc = bc - Hcd @ (wd * bd)
+    downs = [((Hcd * wd[None, :]) @ Hcd.T, Hcd @ (wd * bd))]
 
     if ll:
         # 4×4 line blocks: the diagonal blocks of the trailing [4LL, 4LL]
@@ -102,8 +191,13 @@ def _solve_delta_schur(H, g, lam, free_mask, layout: StateLayout):
         bl = gn[lines0:].reshape(ll, 4)
         sol_bl = _solve_spd4(Hll, bl)                               # Hll⁻¹ bl
         sol_Hcl = _solve_spd4(Hll[:, None], Hcl.transpose(0, 1))   # Hll⁻¹ Hclᵀ [LL,nx,4]
-        Hcc = Hcc - torch.einsum("cla,lna->cn", Hcl, sol_Hcl)
-        bc = bc - torch.einsum("cla,la->c", Hcl, sol_bl)
+        downs.append((torch.einsum("cla,lna->cn", Hcl, sol_Hcl),
+                      torch.einsum("cla,la->c", Hcl, sol_bl)))
+    if reduce is not None:
+        downs = [reduce(sum(d for d, _ in downs), sum(b for _, b in downs))]
+    for down_H, down_b in downs:
+        Hcc = Hcc - down_H
+        bc = bc - down_b
 
     dc = _cho_solve_or_nan(Hcc, bc)
     dd = wd * (bd - Hcd.T @ dc)
@@ -114,22 +208,23 @@ def _solve_delta_schur(H, g, lam, free_mask, layout: StateLayout):
     return torch.cat(parts) * free_mask
 
 
-def _dogleg_step(H, g, free_mask, h_gn, radius):
+def _dogleg_step(H, g, free_mask, h_gn, radius, nx: int = 0, reduce=None):
     """Powell dogleg inside ``radius``: GN step if it fits, else the blend of
-    the Cauchy point and GN on the trust boundary."""
+    the Cauchy point and GN on the trust boundary. Its inner products run
+    over the whole vector (:func:`_products`: two reductions over shards)."""
     gm = g * free_mask
-    gHg = gm @ (H @ gm)
-    alpha = torch.where(gHg > 1e-12, (gm @ gm) / torch.clamp(gHg, min=1e-12),
+    gHg, gg = _products([("quad", gm), ("dot", gm, gm)], H, nx, reduce)
+    alpha = torch.where(gHg > 1e-12, gg / torch.clamp(gHg, min=1e-12),
                         torch.zeros_like(gHg))
     h_sd = -alpha * gm
-    n_gn = torch.linalg.norm(h_gn)
-    n_sd = torch.linalg.norm(h_sd)
 
     # boundary blend h_sd + beta (h_gn − h_sd) with |h| = radius
     d = h_gn - h_sd
-    a = torch.clamp(d @ d, min=1e-18)
-    b = h_sd @ d
-    c = h_sd @ h_sd - radius * radius
+    n_gn, n_sd, dd, b, ss = _products(
+        [("norm", h_gn), ("norm", h_sd), ("dot", d, d), ("dot", h_sd, d), ("dot", h_sd, h_sd)],
+        H, nx, reduce)
+    a = torch.clamp(dd, min=1e-18)
+    c = ss - radius * radius
     disc = torch.clamp(b * b - a * c, min=0.0)
     beta = (-b + torch.sqrt(disc)) / a
     h_blend = h_sd + torch.clamp(beta, 0.0, 1.0) * d
@@ -157,17 +252,21 @@ def solve_window(
     lines=None,
     method: str = "lm",
     linear_solver: str = "dense",
+    reduce=None,
 ):
     """Run the trust-region loop for ``num_iters`` fixed iterations; returns
     (state', tracks', final_cost) — or (state', tracks', lines',
     final_cost) when ``lines`` is given. Landmark depths (and the line
     orthonormal blocks, when present) update jointly through the trailing
-    columns.
+    columns. With ``reduce`` the tracks and lines are this rank's shard
+    (module docstring); the state and the cost are the same on every rank.
     """
     nx = layout.nx
     ml = layout.max_landmarks
     dtype, dev = state.poses.dtype, state.poses.device
     with_lines = lines is not None
+    # the rows that touch the camera block alone are added on one rank
+    replicated = reduce is None or reduce.rank == 0
 
     def apply_delta(st: WindowState, tr: Tracks, ln, delta):
         st2 = retract(st, delta[:nx], layout)
@@ -182,32 +281,38 @@ def solve_window(
     def lin_cost(st, tr, ln):
         J, r = assemble_rows(
             st, tr, inputs(ln), layout, params.sqrt_info_scale, params.cauchy_delta,
-            params.plane_sqrt_info,
+            params.plane_sqrt_info, replicated,
         )
-        return J, r, _cost(r)
+        H, g = normal_equations(J, r)
+        if reduce is None:
+            return H, g, _cost(r)
+        return _reduce_camera(H, g, _cost(r), nx, reduce)
 
     def cost_only(st, tr, ln):
         # residual-only probe (no Jacobian build) for accept/reject; frozen
-        # columns never move, so free_mask does not change r
+        # columns never move, so free_mask does not change r. Over shards
+        # this is the rank's part of the cost
         return _cost(assemble_residuals(
             st, tr, inputs(ln), layout, params.sqrt_info_scale, params.cauchy_delta,
-            params.plane_sqrt_info,
+            params.plane_sqrt_info, replicated,
         ))
 
     if linear_solver == "schur":
         def lin_solve(H, g, lam):
-            return _solve_delta_schur(H, g, lam, inp.free_mask, layout)
-    else:
+            return _solve_delta_schur(H, g, lam, inp.free_mask, layout, reduce)
+    elif reduce is None:
         def lin_solve(H, g, lam):
             return _solve_delta(H, g, lam, inp.free_mask)
+    else:
+        def lin_solve(H, g, lam):
+            return _solve_delta_whole(H, g, lam, inp.free_mask, layout, reduce)
 
     dogleg = method == "dogleg"
     reg = (torch.ones((), dtype=dtype, device=dev) if dogleg
            else params.lm_lambda0.to(dtype=dtype, device=dev))
     _, _, cost = lin_cost(state, tracks, lines)
     for _ in range(num_iters):
-        J, r, c0 = lin_cost(state, tracks, lines)
-        H, g = normal_equations(J, r)
+        H, g, c0 = lin_cost(state, tracks, lines)
         if dogleg:
             # Powell dogleg (ceres DOGLEG, estimator.cpp:3306): `reg` is the
             # trust radius, gain-ratio controlled. The GN step carries a tiny
@@ -217,20 +322,23 @@ def solve_window(
             # exactly undamped solve lets rounding-scale gradient components
             # explode along it; Ceres likewise regularizes its dogleg GN solve
             h_gn = lin_solve(H, g, 1e-6)
-            delta = _dogleg_step(H, g, inp.free_mask, h_gn, reg)
+            delta = _dogleg_step(H, g, inp.free_mask, h_gn, reg, nx, reduce)
         else:
             delta = lin_solve(H, g, reg)
         st_new, tr_new, ln_new = apply_delta(state, tracks, lines, delta)
-        c1 = cost_only(st_new, tr_new, ln_new)
+        # the trial cost, with the dogleg's gain-ratio terms in the same sum
+        gain_terms = [("dot", g, delta), ("quad", delta), ("norm", delta)] if dogleg else []
+        c1, *gain = _products([("sum", cost_only(st_new, tr_new, ln_new))] + gain_terms,
+                              H, nx, reduce)
         accept = c1 < c0
         state = _select(accept, st_new, state)
         tracks = _select(accept, tr_new, tracks)
         if with_lines:
             lines = _select(accept, ln_new, lines)
         if dogleg:
-            pred = -(g @ delta + 0.5 * delta @ (H @ delta))
+            g_delta, dHd, step_norm = gain
+            pred = -(g_delta + 0.5 * dHd)
             rho = (c0 - c1) / torch.clamp(pred, min=1e-18)
-            step_norm = torch.linalg.norm(delta)
             reg = torch.where(
                 accept & (rho > 0.75), torch.maximum(reg, 3.0 * step_norm),
                 torch.where(accept & (rho >= 0.25), reg, reg * 0.5),

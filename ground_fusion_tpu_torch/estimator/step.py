@@ -21,6 +21,10 @@ B sequences in lockstep (:func:`make_window_burst_batched`, the step under
 steps: the keyframe decisions come from the host with the inputs. On CUDA
 the host still waits inside every ``torch.linalg.eigh`` of a step
 (triangulation, marginalization), whose error check synchronizes.
+
+The landmark-sharded step of ``parallel/sharded.py`` is this step body
+(:func:`_build_step`) with a ``reduce`` that sums over the ranks; it is a
+per-frame step only: the bursts and the fleet take a whole core.
 """
 
 from __future__ import annotations
@@ -242,7 +246,9 @@ def make_window_burst_batched(cfg: Config, device=None):
     ``marg_old=False`` on the other, and the two parts' cores and outputs
     are merged tensor by tensor with ``index_copy`` (both branches give
     cores of the same shapes). Nothing is computed for a branch a sequence
-    does not take, and there is no loop over the sequences."""
+    does not take, and there is no loop over the sequences. Each core is a
+    whole core: a landmark-sharded core (``parallel/sharded.py``) runs only
+    through ``make_sharded_window_step``, one frame at a time."""
     step, layout = make_window_step(cfg, device)
 
     def vstep(cores, flags, marg_old: bool):
@@ -312,7 +318,9 @@ def make_window_burst_ingest(cfg: Config, device=None):
     Returns the new core, the outputs stacked ``[K, ...]`` and the post-chunk
     mirror tables (landmark ``obs_valid``, ``active``, ``obs[..., 0:2]``;
     with lines the line ``obs_valid`` and ``active``) for the host's one
-    fetch. Used by ``pipeline.Estimator.enable_burst``."""
+    fetch. Used by ``pipeline.Estimator.enable_burst``. The core is a whole
+    core: a landmark-sharded core (``parallel/sharded.py``) runs only
+    through ``make_sharded_window_step``, one frame at a time."""
     step, layout = make_window_step(cfg, device)
     f = cfg.num_frames
 
@@ -395,10 +403,16 @@ def make_window_burst_ingest(cfg: Config, device=None):
     return burst, layout
 
 
-def _build_step(cfg: Config, device):
-    """The window step body."""
-    layout = StateLayout(cfg.num_frames, cfg.solver.max_landmarks,
-                         cfg.lines.max_lines if cfg.use_line else 0)
+def _build_step(cfg: Config, device, reduce=None):
+    """The window step body. With ``reduce`` (``parallel/sharded.py``'s
+    landmark-sharded step) the core's tracks and lines are this rank's
+    ``1/reduce.world`` of the slots, the layout's landmark and line columns
+    are the rank's own, and the sums that couple landmarks go through
+    ``reduce`` (the stationary vote, the solve, the frame-0
+    marginalization); everything else is the same step on every rank."""
+    shards = 1 if reduce is None else reduce.world
+    layout = StateLayout(cfg.num_frames, cfg.solver.max_landmarks // shards,
+                         cfg.lines.max_lines // shards if cfg.use_line else 0)
     f = cfg.num_frames
     base_mask = torch.as_tensor(base_free_mask(cfg, layout))
     consts = {}
@@ -450,7 +464,7 @@ def _build_step(cfg: Config, device):
                 state, tracks, core.imu_buf, imu_pre, wheel_pre,
                 g, cfg.solver.focal,
                 cfg.init.stationary_acc_var, cfg.init.stationary_parallax,
-                cfg.init.wheel_stationary_dp, cfg.wheel.anomaly_thresh,
+                cfg.init.wheel_stationary_dp, cfg.wheel.anomaly_thresh, reduce=reduce,
             )
             if cfg.wdetect:
                 wheel_buf = wheel_buf._replace(
@@ -553,7 +567,7 @@ def _build_step(cfg: Config, device):
         solved = solve_window(
             state, tracks, inp, layout, params,
             num_iters=cfg.solver.max_iters, lines=lines,
-            method=cfg.solver.method, linear_solver=cfg.solver.linear_solver,
+            method=cfg.solver.method, linear_solver=cfg.solver.linear_solver, reduce=reduce,
         )
         if use_lines:
             state, tracks, lines, cost = solved
@@ -580,7 +594,7 @@ def _build_step(cfg: Config, device):
         if flags.marg_old:
             prior = marginalize_old(
                 state, tracks, inp, layout, params.sqrt_info_scale,
-                params.cauchy_delta, params.plane_sqrt_info, lines=lines,
+                params.cauchy_delta, params.plane_sqrt_info, lines=lines, reduce=reduce,
             )
             core_new = EstimatorCore(
                 state=slide_old_state(state),

@@ -26,8 +26,10 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "jaxlib" or m == "ground_fusion_tpu" or m.startswith("ground_fusion_tpu."))
+from ground_fusion_tpu_torch.parallel import sharded
 print("MODULES", len(names))
 print("NAMES", " ".join(names))
+print("SHARDED", " ".join(n for n in dir(sharded) if not n.startswith("_")))
 print("BAD", bad)
 """
 
@@ -43,7 +45,31 @@ def test_no_module_of_the_port_imports_jax():
                  "frontend.lines", "estimator.lines", "detector.model", "detector.train",
                  "cameras.calibration", "utils.wheel_odom"):
         assert f"ground_fusion_tpu_torch.{name}" in walked, name
+    assert {"make_lm_mesh", "shard_core", "shard_tracks", "gather_core",
+            "make_sharded_window_step", "shard_fleet", "make_sharded_pose_graph"} <= set(
+        lines["SHARDED"].split())
     assert lines["BAD"] == "[]", lines["BAD"]
+
+
+def test_no_estimator_module_imports_torch_distributed():
+    """The estimator takes its cross-landmark sums through a ``reduce``
+    callable: no module under ``estimator/`` imports ``torch.distributed``
+    (only ``parallel/sharded.py`` does)."""
+    import ast
+
+    folder = os.path.join(ROOT, "ground_fusion_tpu_torch", "estimator")
+    for name in sorted(os.listdir(folder)):
+        if not name.endswith(".py"):
+            continue
+        tree = ast.parse(open(os.path.join(folder, name)).read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            assert not any(m.startswith("torch.distributed") for m in mods), (name, mods)
 
 
 def test_full_f32_arithmetic_is_pinned():
@@ -61,7 +87,7 @@ def _no_gpu():
                                    "KeyframeDatabase", "DBoW2Vocabulary", "load_binary",
                                    "GlobalFusion", "VoxelColorMap", "TsdfVolume",
                                    "OccupancyGrid2D", "LineTracker", "load_npz", "init_params",
-                                   "calibrate", "cli"])
+                                   "calibrate", "make_sharded_window_step", "cli"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     """No 'cuda if available else cpu': with no device argument every entry
     point resolves to the GPU, and raises on a machine that has none."""
@@ -79,6 +105,7 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     from ground_fusion_tpu_torch.global_layers.global_fusion import GlobalFusion
     from ground_fusion_tpu_torch.global_layers.meshing import TsdfVolume
     from ground_fusion_tpu_torch.global_layers.pose_graph import PoseGraph
+    from ground_fusion_tpu_torch.parallel.sharded import make_sharded_window_step
     from ground_fusion_tpu_torch.pipeline import Estimator
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
@@ -108,6 +135,7 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
                                                   "weights.npz")),
         "init_params": lambda: init_params(),
         "calibrate": lambda: calibrate("pinhole", board, [board * 100.0] * 3),
+        "make_sharded_window_step": lambda: make_sharded_window_step(cfg),
     }
     if entry == "cli":
         r = subprocess.run(

@@ -92,13 +92,20 @@ def test_fleet_batch_not_divisible_raises(ranks):
 
 def test_every_collective_is_all_reduce_broadcast_or_barrier():
     """Gloo offers only these three for CUDA tensors; the module calls no
-    other ``torch.distributed`` operation that moves data."""
+    other ``torch.distributed`` operation that moves data, in any of its
+    functions, the landmark-sharded step's included (its reducer and its
+    gather); the landmark axis's group is the world or a new group."""
     tree = ast.parse(open(sharded.__file__).read())
     calls = {node.func.attr for node in ast.walk(tree)
              if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
              and isinstance(node.func.value, ast.Name) and node.func.value.id == "dist"}
-    setup = {"init_process_group", "destroy_process_group", "get_rank", "get_world_size"}
+    setup = {"init_process_group", "destroy_process_group", "get_rank", "get_world_size",
+             "new_group", "get_process_group_ranks"}
     assert calls - setup <= {"all_reduce", "broadcast", "barrier"} and "all_reduce" in calls
+    defined = {node.name for node in ast.walk(tree)
+               if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+    assert {"make_lm_mesh", "shard_core", "shard_tracks", "gather_core",
+            "make_sharded_window_step", "_Reducer"} <= defined
 
 
 @pytest.mark.slow
