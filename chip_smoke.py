@@ -48,7 +48,7 @@ Phases (any failure ends the run with a non-zero exit code):
               DBoW2 vocabulary written with ``save_binary`` and query its
               database on the card and on the CPU: the same words, weights
               and answers.
-7. gnss     — render a 40-frame sequence at the intrinsics and wheel mount
+7. gnss     — render a 32-frame sequence at the intrinsics and wheel mount
               of ``configs/m2dgrp.yaml`` with a GNSS receiver at the IMU
               (10 satellites above the config's elevation mask, drifting GPS
               and BeiDou clocks, troposphere; one epoch per frame in
@@ -60,7 +60,7 @@ Phases (any failure ends the run with a non-zero exit code):
               a finite pose per solved frame; and the float32
               pseudorange/Doppler rows at ground truth stay below 5 mm on
               the card. Prints per-stage times beside phase 4's.
-8. path C   — render a 40-frame sequence at the camera and mounts of
+8. path C   — render a 32-frame sequence at the camera and mounts of
               ``configs/groundchallenge.yaml`` in which the vehicle is
               moving from the first frame, and run it through
               ``__main__.run`` on the GPU with a copy of that config with the
@@ -90,9 +90,9 @@ Phases (any failure ends the run with a non-zero exit code):
               ``LineTracker`` over the drive's images in float64 on the card
               and on the CPU gives the same ids and endpoints within 1e-6 px.
               Prints the ``track``, ``lines`` and ``solve`` stages beside
-              phase 4's, the frame of the first triangulated line, and the
-              operations of one frame with lines (``tools/count_step_ops.py
-              --use-line``, counted on the CPU).
+              phase 4's and the frame of the first triangulated line (the
+              operations of one frame with lines are a CPU count:
+              ``tools/count_step_ops.py --use-line``).
 11. modes   — the execution modes: (a) phase 4's rendered sequence and
               config through ``__main__.main([..., "--burst", "8"])`` on the
               GPU: as many poses as phase 4, ATE, no reboot, the state on the
@@ -101,12 +101,13 @@ Phases (any failure ends the run with a non-zero exit code):
               8), no ``_fetch_track_masks`` call on a staged frame (the
               method wrapped here), ``loop.txt`` written; prints ``solve``
               beside phase 4's, frames/s and the largest position
-              difference from phase 4's ``vio.txt``. (b) Three
-              ``Estimator``s in float64 on the GPU at the default config's
-              widths on the simulator drive of ``tests/test_pipeline.py``
-              (no images), 15 frames deep: per frame, live and in bursts of
-              8, every pose of live and burst within 1e-3 m of the
-              per-frame pose, live flushing chunks of 1. (c) The fleet: 4
+              difference from phase 4's ``vio.txt``; on phase 4's first 24
+              frames. (b) Two ``Estimator``s in float64 on the GPU at the
+              default config's widths on the simulator drive of
+              ``tests/test_pipeline.py`` (no images), 15 frames deep: per
+              frame and live, every live pose within 1e-3 m of the
+              per-frame pose, live flushing chunks of 1 (the same drive in
+              bursts of 8 runs in phase 14f, in float32). (c) The fleet: 4
               filled cores over 2 steps through
               ``make_window_burst_batched`` against four
               ``make_window_burst`` runs at ``tests/test_burst.py``'s
@@ -115,9 +116,9 @@ Phases (any failure ends the run with a non-zero exit code):
               48 IMU and 24 wheel samples, mixed masks, float64, to 1e-10;
               ms per call of both.
 12. checkpoint — (a) phase 4's config with the dense map on (no mesh)
-              through ``__main__.main`` on the first 20 frames of phase 4's
+              through ``__main__.main`` on the first 15 frames of phase 4's
               sequence with ``--save-state``; ``build_grid`` of the run's
-              ``pose_graph.npz`` and ``map.ply``; the whole sequence with
+              ``pose_graph.npz`` and ``map.ply``; its first 26 frames with
               ``--resume``, ``--load-graph`` and ``--load-grid``: no frame or
               sensor row at or before the snapshot fed again, post-snapshot
               ATE < 0.05 m and < 5 % of the path, no reboot, the state on the
@@ -146,8 +147,9 @@ Phases (any failure ends the run with a non-zero exit code):
               depths and line coordinates to 1e-8, the prior's J0ᵀJ0 and
               J0ᵀr0 to 1e-5 (or 1e-8 of their scale), slot masks equal,
               both ranks' outputs and replicated state bitwise equal; ms
-              per step of both (CUDA events), reductions per step, the
-              float32 difference (printed, not gated).
+              per step of both (CUDA events), reductions per step; both
+              branches again in float32: finite, the difference printed,
+              not gated.
 13. dynamic objects and cameras — (b) phase 4's drive cut to 24 frames with
               the checker object of ``tests/test_detector_e2e.py`` (32 px,
               a false depth of 1.2 m, ~1 px a frame, on a mid-grey
@@ -169,10 +171,34 @@ Phases (any failure ends the run with a non-zero exit code):
               scene rendered through the equidistant model (20 frames) and
               run with ``camera.model: equidistant``: ATE, one ``lk_track``
               launch per tracked frame.
-Then the card's line, the ``{"kernels": [...]}`` line (one entry per kernel
-entry point: ``lk_level``, ``lk_track``, ``hamming_matrix``,
-``hamming_match``; launches counted on the paths of phases 4, 5, 7, 8, 10,
-11, 12 and 13), and the last line ``{"ok": true, "device": {...}}``.
+14. last modules — (a) the stereo factors ``proj22``/``proj12`` on the card
+              in float64 and float32 at the oracle's ground truth
+              (``tests/test_solver.py``): residuals below 1e-9 / 1e-3, the
+              Jacobians within 1e-9 / 1e-3 of the CPU's. (b) The native ingest
+              runtime built with ``g++`` on the machine; seeded IMU and wheel
+              pushes (some out of order) drained over ten intervals at three
+              caps and paired with ``sync_pairs``, equal to a NumPy drain and
+              pairing of the same rows. (c) ``detector.train.train`` on the
+              card with the JAX package's schedule (400 steps of 16 scenes,
+              seed 0, from ``init_params``): the loss falls, recall ≥ 0.7 at
+              IoU 0.3 on phase 13a's 10 scenes; ms a step, peak memory. (d)
+              ``scripts.make_synth_seq`` writes 12 frames and
+              ``__main__.run`` runs them on the card with
+              ``tests/test_full_system.py``'s config: poses, no reboot, one
+              ``lk_track`` launch per tracked frame. (e)
+              ``scripts.profile_step``'s stage table on a seeded window at
+              the widths of ``configs/groundchallenge.yaml`` in float32: host
+              and device ms and operations of each stage; the stages that
+              the step runs one after another take no more device time
+              than the step. (f) ``scripts.parity``'s ``vio_wheel_exact``
+              in bursts of 8, float32 on the card, its first 20 frames (a
+              full chunk of 8 flushed): ATE
+              below 0.05 m. Prints the seconds the phase took.
+Each phase prints the seconds it took. Then the card's line, the
+``{"kernels": [...]}`` line (one entry per kernel entry point: ``lk_level``,
+``lk_track``, ``hamming_matrix``, ``hamming_match``; launches counted on the
+paths of phases 4, 5, 7, 8, 10, 11, 12, 13 and 14), and the last line
+``{"ok": true, "device": {...}}``.
 
 The script imports only the port (never JAX or the JAX package), needs no
 network, and starts no process that outlives it (phase 12c-d's two ranks
@@ -264,7 +290,7 @@ SCORE_TOL = 1e-6
 # troposphere; one epoch at every frame (the JAX package pairs the last
 # epochs with the last window frames at alignment, ROADMAP queue 3) and a
 # 0.5 m GPS fix at every third frame.
-GNSS_FRAMES = 40
+GNSS_FRAMES = 32            # alignment comes near frame 21
 GNSS_ANCHOR_LLA_DEG = (31.0, 121.4, 12.0)
 GNSS_YAW = 0.25
 GNSS_SATS, GNSS_SAT_SEED, GNSS_ELEVATION_DEG = 10, 3, (35.0, 80.0)
@@ -284,6 +310,7 @@ GNSS_ECEF_BOUND_M = 1.0      # the newest pose in ECEF (tests/test_pipeline.py)
 # log-depth preintegration against the sequential loop at the config's
 # capacities with mixed masks in float64.
 BURST_CHUNK = 8
+MODES_CLI_FRAMES = 24        # 11a: phase 4's first 24 frames (three chunks of 8 staged after the fill)
 MODES_FRAMES, MODES_LANDMARKS, MODES_POSE_TOL_M = 15, 200, 1e-3
 FLEET_B, FLEET_K = 4, 2
 FLEET_TOL = dict(step_pose=1e-2, end_pose=1e-3, inv_depth=2e-3)
@@ -1675,7 +1702,7 @@ def phase_gnss(torch, work_dir, main_times):
 # voxel, so the drive's depth images also carry an untextured wall behind the
 # landmarks (radius 6 m about the circle's centre): the surface the TSDF
 # meshes and most of the map's points.
-PATH_C_FRAMES = 40
+PATH_C_FRAMES = 32          # 22 poses after the SfM start at frame 10
 PATH_C_SIM = dict(omega=0.15, frame_rate=30.0)
 PATH_C_WALL_M = 6.0
 PATH_C_MIN_POSES = 20
@@ -2142,16 +2169,6 @@ def line_trackers_agree(torch, seq_dir: str, n_frames: int, devices=("cuda", "cp
     return n_frames, len(ids), worst
 
 
-def count_ops_with_lines() -> str:
-    """The summary line of ``tools/count_step_ops.py --use-line`` (one frame
-    of the groundchallenge config with lines, counted on the CPU)."""
-    r = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "count_step_ops.py"),
-                        "--use-line", "--device", "cpu"], cwd=ROOT, capture_output=True,
-                       text=True, timeout=600)
-    check(r.returncode == 0, f"lines: tools/count_step_ops.py failed: {r.stderr[-2000:]}")
-    return r.stdout.strip().splitlines()[0]
-
-
 def phase_lines(torch, work_dir, main_times):
     import numpy as np
 
@@ -2211,8 +2228,6 @@ def phase_lines(torch, work_dir, main_times):
     print(f"lines: LineTracker in float64 on the card and the CPU over {n} frames: the same ids "
           f"({n_ids} in all), endpoints at most {worst:.3e} px apart (bound {LINE_TRACKER_PX_TOL}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"lines: operations of one frame with lines, counted on the CPU by "
-          f"tools/count_step_ops.py --use-line: {count_ops_with_lines()}", flush=True)
     return counts
 
 
@@ -2353,7 +2368,9 @@ def phase_modes_cli(torch, work_dir, main_times, device="cuda"):
     from ground_fusion_tpu_torch.ops.cuda import hamming, klt
     from ground_fusion_tpu_torch.pipeline import Estimator
 
-    seq, out4 = os.path.join(work_dir, "seq"), os.path.join(work_dir, "out")
+    seq = head_sequence(os.path.join(work_dir, "seq"), os.path.join(work_dir, "seq_burst"),
+                        MODES_CLI_FRAMES)
+    out4 = os.path.join(work_dir, "out")
     out = os.path.join(work_dir, "out_burst")
     staged_fetches, fill_fetches = [], []
     fetch = Estimator._fetch_track_masks
@@ -2376,7 +2393,11 @@ def phase_modes_cli(torch, work_dir, main_times, device="cuda"):
     check(rc == 0 and system is not None, f"modes: the CLI with --burst returned {rc}")
     est = system.estimator
 
-    n4, _, _ = trajectory_ate(os.path.join(out4, "vio.txt"), os.path.join(seq, "gt.csv"))
+    # phase 4's poses over the same frames
+    t_last = float(np.loadtxt(os.path.join(seq, "frames.csv"), delimiter=",", usecols=0)[-1])
+    a = np.loadtxt(os.path.join(out4, "vio.txt"), ndmin=2)
+    a = a[a[:, 0] <= t_last + 1e-6]
+    n4 = len(a)
     n_poses, ate, path = trajectory_ate(os.path.join(out, "vio.txt"), os.path.join(seq, "gt.csv"))
     sizes = est._burst_flushed_sizes
     print(f"modes: --burst {BURST_CHUNK}: {n_poses} poses (phase 4: {n4}) over {path:.4f} m, ATE "
@@ -2394,7 +2415,7 @@ def phase_modes_cli(torch, work_dir, main_times, device="cuda"):
     check(sum(sizes) == n_poses - 1, f"modes: {sum(sizes)} staged frames for {n_poses} poses")
     check(staged_fetches == [], f"modes: {len(staged_fetches)} mask fetches on staged frames")
     tracked_frames = system.stats.counts["track"] - 1
-    check(tracked_frames == N_FRAMES - 1, f"modes: {tracked_frames} tracked frames")
+    check(tracked_frames == MODES_CLI_FRAMES - 1, f"modes: {tracked_frames} tracked frames")
     check(counts["lk_track"] == tracked_frames,
           f"modes: {counts['lk_track']} lk_track launches, expected {tracked_frames}")
     check(counts["lk_level"] == 0 and counts["plain"] == 0,
@@ -2403,14 +2424,13 @@ def phase_modes_cli(torch, work_dir, main_times, device="cuda"):
     check(len(loop_lines) == len(system.pose_graph.kfs) >= 1,
           f"modes: {len(loop_lines)} lines in loop.txt for {len(system.pose_graph.kfs)} keyframes")
 
-    a = np.loadtxt(os.path.join(out4, "vio.txt"), ndmin=2)
     b = np.loadtxt(os.path.join(out, "vio.txt"), ndmin=2)
     diff = float(np.abs(a[:, 1:4] - b[:, 1:4]).max()) if a.shape == b.shape else float("nan")
     stats = system.stats
     print(f"modes: --burst {BURST_CHUNK}: solve median {stats.median('solve'):.2f} ms/frame (mean "
           f"{stats.mean('solve'):.2f}; phase 4: {main_times['solve'][0]:.2f}, mean "
           f"{main_times['solve'][1]:.2f}) over {stats.counts['solve']} frames, "
-          f"{N_FRAMES / wall:.3f} frames/s ({wall:.1f} s wall), {len(fill_fetches)} mask fetches "
+          f"{MODES_CLI_FRAMES / wall:.3f} frames/s ({wall:.1f} s wall), {len(fill_fetches)} mask fetches "
           f"in the fill, {len(loop_lines)} keyframes in loop.txt, largest position difference "
           f"from phase 4's vio.txt {diff:.5f} m (not bounded: without prediction seeding the "
           f"tracker's features differ), launches {counts}", flush=True)
@@ -2421,7 +2441,8 @@ def phase_modes_cli(torch, work_dir, main_times, device="cuda"):
 
 
 def phase_modes_replay(torch, device="cuda", n_frames=MODES_FRAMES):
-    """11b: per frame, live and bursts of 8 on the same features."""
+    """11b: per frame and live on the same features (bursts of 8 of the
+    same drive: phase 14f)."""
     import copy
 
     import numpy as np
@@ -2435,12 +2456,10 @@ def phase_modes_replay(torch, device="cuda", n_frames=MODES_FRAMES):
     feed_drive(est, drive, range(cfg.num_frames))
     check(est.solver_flag == Estimator.NON_LINEAR, "modes: the replay did not initialize")
     runs = {}
-    for mode in ("frame", "live", "burst"):
+    for mode in ("frame", "live"):
         e = copy.deepcopy(est)
         if mode == "live":
             e.enable_live()
-        elif mode == "burst":
-            e.enable_burst(BURST_CHUNK)
         t0 = time.perf_counter()
         feed_drive(e, drive, range(cfg.num_frames, n_frames))
         e.flush_burst()
@@ -2449,17 +2468,15 @@ def phase_modes_replay(torch, device="cuda", n_frames=MODES_FRAMES):
     ref = np.stack([p[0:3] for _, p in runs["frame"][0].trajectory])
     n = n_frames - cfg.num_frames
     line = [f"{n} frames after the first solve: per frame {runs['frame'][1]:.1f} s"]
-    for mode in ("live", "burst"):
-        e, wall = runs[mode]
-        got = np.stack([p[0:3] for _, p in e.trajectory])
-        check(got.shape == ref.shape, f"modes: {mode} gave {len(got)} poses, per frame {len(ref)}")
-        worst = float(np.abs(got - ref).max())
-        check(worst <= MODES_POSE_TOL_M, f"modes: {mode} poses {worst:.3e} m from per frame")
-        check(e.core.state.poses.device.type == device and e.reboots == 0,
-              f"modes: {mode} state or reboot")
-        line.append(f"{mode} {wall:.1f} s (chunks {e._burst_flushed_sizes}, poses at most "
-                    f"{worst:.3e} m from per frame)")
-    check(set(runs["live"][0]._burst_flushed_sizes) == {1}, "modes: live flushed a chunk of more than 1")
+    e, wall = runs["live"]
+    got = np.stack([p[0:3] for _, p in e.trajectory])
+    check(got.shape == ref.shape, f"modes: live gave {len(got)} poses, per frame {len(ref)}")
+    worst = float(np.abs(got - ref).max())
+    check(worst <= MODES_POSE_TOL_M, f"modes: live poses {worst:.3e} m from per frame")
+    check(e.core.state.poses.device.type == device and e.reboots == 0, "modes: live state or reboot")
+    line.append(f"live {wall:.1f} s (chunks {e._burst_flushed_sizes}, poses at most "
+                f"{worst:.3e} m from per frame)")
+    check(set(e._burst_flushed_sizes) == {1}, "modes: live flushed a chunk of more than 1")
     print(f"modes: float64 on {device}, {cfg.num_frames}-frame window, "
           f"{cfg.solver.max_landmarks} landmarks: " + "; ".join(line), flush=True)
 
@@ -2570,7 +2587,7 @@ def phase_modes(torch, work_dir, main_times):
 # the phase near phase 4's wall time). The resumed poses are held to the
 # oracle's bound (tests/test_checkpoint.py:147) and the republished prior grid
 # to the PGM round trip's (tests/test_checkpoint.py:161).
-CKPT_FRAMES, CKPT_DRIVE = 15, 30
+CKPT_FRAMES, CKPT_DRIVE = 15, 26
 RESUME_ATE_BOUND_M = 0.05
 GRID_PROB_TOL = 0.02
 RELOC_KEYFRAMES = 10
@@ -3095,9 +3112,11 @@ def run_step_cases(rank: int, width: str, dev, core_path: str = "") -> dict:
     :func:`shard_step_cases` the steps of :data:`SHARD_CHAIN` through the
     landmark-sharded step (at full width its first three, to keep 12d near
     a minute; ``dense`` and ``lm`` the first two), in float64 and, at full
-    width, the second-new branch once more in float32 (there the keyframe
-    branch's prior square root can meet an ``eigh`` that does not converge,
-    on the CPU). Records each step's output and replicated core, the whole
+    width, both branches once more in float32; at small width ``lm`` runs
+    its keyframe step in float32 too (``lm_f32``: the step whose prior
+    square root met an ``eigh`` that did not converge, on a CPU, before
+    ``marginalization._sqrt_factorize`` stopped handing a Cholesky-factored
+    H to ``eigh``). Records each step's output and replicated core, the whole
     slid tables (:func:`gather_core`), the reductions and the ms (CUDA
     events on the card). Then the same steps through the unsharded
     step, with their ms, outputs and cores: at full width on rank 0 alone
@@ -3151,10 +3170,10 @@ def run_step_cases(rank: int, width: str, dev, core_path: str = "") -> dict:
     else:
         runs = []
         for name, cfg in shard_step_cases(width).items():
-            for dtype in ((f64, torch.float32) if width == "full" else (f64,)):
-                chain = (SHARD_CHAIN[1:2] if dtype != f64 else SHARD_CHAIN[:2]
-                         if name in ("dense", "lm") else SHARD_CHAIN[:3]
-                         if width == "full" else SHARD_CHAIN)
+            for dtype in ((f64, torch.float32) if width == "full" or name == "lm" else (f64,)):
+                chain = (SHARD_CHAIN[:1] if width == "small" and dtype != f64 else
+                         SHARD_CHAIN[:2] if dtype != f64 or name in ("dense", "lm") else
+                         SHARD_CHAIN[:3] if width == "full" else SHARD_CHAIN)
                 runs.append((name if dtype == f64 else name + "_f32", cfg,
                              *shard_case(name, cfg, dtype, dev), chain))
     res = {}
@@ -3259,8 +3278,8 @@ def phase_checkpoint_landmarks(torch, work_dir, device="cuda"):
     through :data:`SHARD_CHAIN` against the unsharded step (rank 0):
     poses, depths and line coordinates to 1e-8, the prior by
     :func:`prior_gap`, slot masks equal, the ranks bitwise equal; ms per
-    step of both (CUDA events), reductions per step; float32 printed, not
-    gated."""
+    step of both (CUDA events), reductions per step; float32 both branches
+    from the core, finite, their differences printed, not gated."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -3284,15 +3303,21 @@ def phase_checkpoint_landmarks(torch, work_dir, device="cuda"):
         ms = [float(r0[f"{case}.{k}.ms"]) for k in range(n)]
         ms1 = [float(r0[f"{case}.{k}.single_ms"]) for k in range(n)]
         red = [int(r0[f"{case}.{k}.reductions"]) for k in range(n)]
-        f32 = {k: float(np.abs(r0[f"{case}_f32.0.out.{k}"] - r0[f"{case}_f32.0.single.out.{k}"]).max())
-               for k in ("poses", "cost")}
+        f32 = {(b, k): float(np.abs(r0[f"{case}_f32.{b}.out.{k}"]
+                                    - r0[f"{case}_f32.{b}.single.out.{k}"]).max())
+               for b in (0, 1) for k in ("poses", "cost")}
+        for b, branch in enumerate(("keyframe", "second-new")):
+            check(all(np.isfinite(r0[f"{case}_f32.{b}.{part}"]).all()
+                      for part in ("out.poses", "rep.prior.J0", "single.out.poses")),
+                  f"shard step: {case} float32 {branch} step not finite")
         parts.append(
             f"{case}: sharded {np.median(ms):.1f} ms a step (median of {n}; {', '.join(f'{m:.1f}' for m in ms)}) "
             f"against unsharded {np.median(ms1):.1f} ({', '.join(f'{m:.1f}' for m in ms1)}); "
             f"reductions per step {red}; largest differences poses {gap['poses']:.3e}, "
             f"depths {gap['depth']:.3e}, line coordinates {gap['orth']:.3e}, prior "
-            f"{gap['prior']:.3e} of its bound; float32 (second-new branch, not gated): poses "
-            f"{f32['poses']:.3e}, cost {f32['cost']:.3e}")
+            f"{gap['prior']:.3e} of its bound; float32 (finite; differences not gated): "
+            f"keyframe poses {f32[0, 'poses']:.3e}, cost {f32[0, 'cost']:.3e}, second-new poses "
+            f"{f32[1, 'poses']:.3e}, cost {f32[1, 'cost']:.3e}")
     print(f"shard step: {SHARD_WORLD} Gloo ranks on {device}, float64 ({wall:.1f} s with "
           f"start-up): " + "; ".join(parts), flush=True)
 
@@ -4094,6 +4119,283 @@ def phase_dynamic_cameras(torch, work_dir, main_times):
     return {k: dyn[k] + cams[k] for k in dyn}
 
 
+# -------------------------------------------------------------------------- 14
+
+# The last modules (phase 14): the stereo factors at the oracle's geometry
+# (tests/test_solver.py::test_stereo_factors_zero_at_gt), the native ingest
+# runtime against a NumPy drain, detector training with the JAX package's
+# schedule (400 steps of 16 scenes, seed 0) held to phase 13a's recall bound,
+# a short make_synth_seq sequence through the CLI, profile_step's stage table
+# and the exact VIO-wheel parity scenario in float32 against its bound.
+STEREO_TOL = {"float64": 1e-9, "float32": 1e-3}      # whitened px at ground truth
+STEREO_JAC_REL = {"float64": 1e-9, "float32": 1e-3}   # the card's Jacobian against the CPU's
+TRAIN_STEPS, TRAIN_BATCH = 400, 16
+SYNTH_FRAMES = 12           # the window fills at frame 10: the first solves
+SYNTH_CONFIG = ("camera:\n  fx: 460.0\n  fy: 460.0\n  cx: 320.0\n  cy: 240.0\n"
+                "tracker:\n  max_features: 128\n  min_dist_px: 25.0\n  depth_max: 7.0\n"
+                "use_depth: true\n")                   # tests/test_full_system.py's config
+PROFILE_REPS = 1
+PARITY_FRAMES = 20           # vio_wheel_exact's first 20 of 35 frames (a full chunk of 8 after
+                             # the fill); all 35: scripts/parity.py
+PARITY_BOUND_M = 0.05                                  # vio_wheel_exact (tests/test_pipeline.py)
+
+
+def stereo_cases(torch, dtype, device):
+    """The oracle's consistent two-camera geometry on ``device``: proj22's
+    and proj12's (r, J) at ground truth."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.estimator.factors import proj12_factor, proj22_factor
+    from ground_fusion_tpu_torch.geometry.se3 import pose_apply_inv, pose_compose
+    from ground_fusion_tpu_torch.geometry.so3 import mat_to_quat, ypr_to_mat
+
+    f64 = torch.float64
+    R = ypr_to_mat(torch.tensor([0.1, -0.04, 0.02], dtype=f64))
+    pose_i = torch.cat([torch.zeros(3, dtype=f64), mat_to_quat(torch.eye(3, dtype=f64))])
+    pose_j = torch.cat([torch.tensor([0.5, 0.1, 0.0], dtype=f64), mat_to_quat(R)])
+    ex0 = torch.tensor([0.0, 0, 0, 1, 0, 0, 0], dtype=f64)
+    ex1 = torch.tensor([0.1, 0.0, 0.0, 1, 0, 0, 0], dtype=f64)       # 10 cm baseline
+    pt_w = torch.tensor([0.3, -0.2, 4.0], dtype=f64)
+    pc_i = pose_apply_inv(pose_compose(pose_i, ex0), pt_w)
+    pc_j = pose_apply_inv(pose_compose(pose_j, ex1), pt_w)
+    pc_1 = pose_apply_inv(pose_compose(pose_i, ex1), pt_w)
+    z = torch.zeros(8, dtype=f64)
+    obs22 = torch.cat([pc_i / pc_i[2], pc_j / pc_j[2], z])
+    obs12 = torch.cat([pc_i / pc_i[2], pc_1 / pc_1[2], z])
+    a = lambda t: t.to(dtype=dtype, device=device)
+    scale, inv_dep, td = a(torch.tensor(460.0 / 1.5)), a(1.0 / pc_i[2]), a(torch.tensor(0.0))
+    return {"proj22": proj22_factor(a(pose_i), a(pose_j), a(ex0), a(ex1), inv_dep, td,
+                                    a(obs22), scale),
+            "proj12": proj12_factor(a(ex0), a(ex1), inv_dep, td, a(obs12), scale)}
+
+
+def phase_stereo_factors(torch, device="cuda"):
+    """14a: proj22/proj12 on the card in float64 and float32 against the CPU."""
+    cpu = stereo_cases(torch, torch.float64, torch.device("cpu"))
+    line = []
+    for name, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+        got = stereo_cases(torch, dtype, torch.device(device))
+        for f in ("proj22", "proj12"):
+            r, J = got[f]
+            check(r.device.type == device and r.dtype == dtype, f"stereo: {f} {name} not on {device}")
+            res = float(r.abs().max())
+            J_ref = cpu[f][1]
+            rel = float((J.double().cpu() - J_ref).abs().max() / J_ref.abs().max())
+            check(res < STEREO_TOL[name], f"stereo: {f} {name} residual {res:.3e} at ground truth")
+            check(rel < STEREO_JAC_REL[name], f"stereo: {f} {name} Jacobian {rel:.3e} from the CPU's")
+            line.append(f"{f} {name} |r| {res:.3e}, J {rel:.3e} of the CPU's")
+    print(f"stereo factors on {device} at ground truth: " + "; ".join(line), flush=True)
+
+
+def numpy_drain(rows, t0, t1, cap):
+    """The drain of ``native/src/ingest.cpp`` in NumPy: rows (t, a[3], b[3])
+    with t in (t0, t1] (1e-9 slack) in time order, padded to ``cap``, seeded
+    by the newest row at or before t0 (else the first in the interval)."""
+    import numpy as np
+
+    t = np.array([r[0] for r in rows])
+    hit = np.nonzero((t > t0 + 1e-9) & (t <= t1 + 1e-9))[0]
+    hit = hit[np.argsort(t[hit], kind="stable")][:cap]
+    dts, a, b = np.zeros(cap), np.zeros((cap, 3)), np.zeros((cap, 3))
+    valid = np.zeros(cap, bool)
+    tp = t0
+    for k, i in enumerate(hit):
+        dts[k], tp = t[i] - tp, t[i]
+        a[k], b[k], valid[k] = rows[i][1], rows[i][2], True
+    before = np.nonzero(t <= t0 + 1e-9)[0]
+    seed = (before[np.argmax(t[before])] if len(before) else hit[0] if len(hit) else None)
+    a0, b0 = (rows[seed][1], rows[seed][2]) if seed is not None else (np.zeros(3), np.zeros(3))
+    return dts, a, b, valid, np.asarray(a0, float), np.asarray(b0, float)
+
+
+def numpy_sync_pairs(ts_a, ts_b, tol):
+    """Greedy in-order timestamp pairing, as ``gf_sync_pairs``."""
+    out, j = [], 0
+    for i, ta in enumerate(ts_a):
+        while j + 1 < len(ts_b) and abs(ts_b[j + 1] - ta) <= abs(ts_b[j] - ta):
+            j += 1
+        if len(ts_b) and abs(ts_b[j] - ta) <= tol:
+            out.append((i, j))
+    return out
+
+
+def phase_native():
+    """14b: ``libgfingest`` built by g++ here; seeded pushes drained and
+    paired, against the NumPy drain of the same rows."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    ing = native.NativeIngest()
+    rows = {}
+    for kind, n, rate in (("imu", 400, 200.0), ("wheel", 200, 100.0)):
+        ts = np.cumsum(np.full(n, 1.0 / rate) + rng.uniform(-1e-4, 1e-4, n))
+        order = np.arange(n)
+        order[100:110] = order[100:110][::-1]                  # out of order
+        rows[kind] = [(ts[k], rng.normal(size=3), rng.normal(size=3)) for k in order]
+        push = ing.push_imu if kind == "imu" else ing.push_wheel
+        for t, a, b in rows[kind]:
+            push(t, a, b)
+    cuts = [0.0, 0.1, 0.1, 0.2, 0.35, 0.5, 0.9, 1.2, 1.9, 2.5]
+    n_drains = n_samples = 0
+    for t_a, t_b in zip(cuts[:-1], cuts[1:]):
+        for kind, cap in (("imu", 48), ("imu", 16), ("wheel", 24)):
+            got = (ing.drain_imu if kind == "imu" else ing.drain_wheel)(t_a, t_b, cap)
+            want = numpy_drain(rows[kind], t_a, t_b, cap)
+            check(all(np.array_equal(x, y) for x, y in zip(got, want)),
+                  f"native: {kind} drain ({t_a}, {t_b}] cap {cap} differs from NumPy's")
+            n_drains += 1
+            n_samples += int(got[3].sum())
+    cam = np.arange(60) / 30.0 + rng.uniform(-0.002, 0.002, 60)
+    depth = np.delete(np.arange(60) / 30.0 + rng.uniform(-0.005, 0.005, 60), [7, 8, 30])
+    gi, gj = native.sync_pairs(cam, depth)
+    want = numpy_sync_pairs(cam, depth, 0.003)
+    check(list(zip(gi.tolist(), gj.tolist())) == want and len(want) > 0,
+          "native: sync_pairs differs from NumPy's pairing")
+    print(f"native: built {os.path.basename(path)} with g++ in {build_s:.1f} s; {n_drains} drains "
+          f"({n_samples} samples) and {len(want)} sync pairs equal to NumPy's", flush=True)
+
+
+def phase_train_detector(torch, device="cuda", steps=TRAIN_STEPS):
+    """14c: ``train`` on the card (the JAX package's schedule) and the
+    trained detector's recall on the 10 scenes of tests/test_detector.py."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.detector.model import detect
+    from ground_fusion_tpu_torch.detector.train import render_scene, train
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    params = train(steps=steps, batch=TRAIN_BATCH, seed=0, log_every=0, losses=losses,
+                   device=None if dev.type == "cuda" else dev)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20 if dev.type == "cuda" else float("nan")
+    check(all(t.device.type == dev.type for blk in params.convs for t in blk),
+          f"train: weights not on {device}")
+    first, last = losses[0], float(np.mean(losses[-20:]))
+    check(np.isfinite(losses).all() and last < first,
+          f"train: the loss did not fall ({first:.4f} to {last:.4f})")
+    rng = np.random.default_rng(DET_SEED)
+    results, gts = [], []
+    for _ in range(DET_SCENES):
+        img, boxes, n = render_scene(rng)
+        results.append([x.cpu().numpy() for x in detect(params, torch.as_tensor(img, device=dev),
+                                                        conf_thresh=DET_CONF)])
+        gts.append((boxes, n))
+    hits, total = detector_recall(np, results, gts)
+    check(hits >= DET_RECALL * total, f"train: recall {hits}/{total} below {DET_RECALL}")
+    print(f"train: {steps} steps of {TRAIN_BATCH} on {device}, loss {first:.4f} to {last:.4f} "
+          f"(mean of the last 20), {1e3 * wall / steps:.2f} ms a step (scene rendering on the "
+          f"host included), peak {peak:.1f} MiB; recall {hits}/{total} at IoU {DET_IOU} "
+          f"(bound {DET_RECALL})", flush=True)
+
+
+def phase_synth_cli(torch, work_dir, device="cuda"):
+    """14d: make_synth_seq's sequence through ``__main__.run`` on the card;
+    returns the launches."""
+    import contextlib
+    import io
+
+    from ground_fusion_tpu_torch.__main__ import run
+    from ground_fusion_tpu_torch.ops.cuda import hamming, klt
+    from ground_fusion_tpu_torch.scripts import make_synth_seq
+
+    seq = os.path.join(work_dir, "synth_seq")
+    out = os.path.join(work_dir, "synth_out")
+    cfg = os.path.join(work_dir, "synth.yaml")
+    with open(cfg, "w") as fp:
+        fp.write(SYNTH_CONFIG)
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_synth_seq.main(seq, SYNTH_FRAMES)
+    _zero_counters(klt, hamming)
+    t0 = time.perf_counter()
+    system = run(cfg, seq, out, device=None if device == "cuda" else device)
+    _sync(torch, system.estimator.device)
+    wall = time.perf_counter() - t0
+    counts = _read_counters(klt, hamming)
+    n_poses, ate, path = trajectory_ate(os.path.join(out, "vio.txt"), os.path.join(seq, "gt.csv"))
+    tracked = system.stats.counts["track"] - 1
+    check(n_poses >= 1 and system.estimator.reboots == 0, "synth: no pose or a reboot")
+    check(system.estimator.core.state.poses.device.type == device, f"synth: the state is not on {device}")
+    # on the card one lk_track launch per tracked frame; the CPU runs the plain LK
+    launched, plain = (tracked, 0) if device == "cuda" else (0, tracked)
+    check(tracked == SYNTH_FRAMES - 1 and counts["lk_track"] == launched and counts["plain"] == plain,
+          f"synth: {counts['lk_track']} lk_track launches for {tracked} tracked frames, "
+          f"plain {counts['plain']}")
+    print(f"synth: make_synth_seq wrote {SYNTH_FRAMES} frames; __main__.run gave {n_poses} poses, "
+          f"ATE {ate:.5f} m over {path:.4f} m (mounts of the simulator, not asserted), "
+          f"{SYNTH_FRAMES / wall:.3f} frames/s, launches {counts}", flush=True)
+    return counts
+
+
+def phase_profile_step(torch, device="cuda", cfg=None):
+    """14e: profile_step's stage table on the card (the main path's config,
+    float32; ``cfg`` to rehearse it small on the CPU, where the device
+    checks are skipped)."""
+    from ground_fusion_tpu_torch.config import load_yaml
+    from ground_fusion_tpu_torch.scripts import profile_step
+
+    rows = profile_step.profile(cfg or load_yaml(CONFIG_PATH), None if device == "cuda" else device,
+                                torch.float32, reps=PROFILE_REPS,
+                                out=lambda line: print("profile_step: " + line, flush=True))
+    if device != "cuda":
+        return
+    dev = {r["stage"]: r["device_ms"] for r in rows}
+    # JᵀJ and the Cholesky solve (cuBLAS, cuSOLVER) may show no kernel time
+    # to the profiler; the stages that the step runs, and the step, must
+    check(all(dev[n] is not None and dev[n] > 0 for n in profile_step.TOP_LEVEL + ("step",)),
+          f"profile_step: no device time in {dev}")
+    top = sum(dev[n] for n in profile_step.TOP_LEVEL)
+    check(top <= dev["step"], f"profile_step: the stages' device ms {top:.3f} exceed the "
+                              f"step's {dev['step']:.3f}")
+    print(f"profile_step: the step's stages {top:.3f} device ms of its {dev['step']:.3f}", flush=True)
+
+
+def phase_parity(torch, device="cuda", n_frames=PARITY_FRAMES):
+    """14f: the exact VIO-wheel parity scenario in bursts of 8, float32 on
+    the card, against its bound (its first :data:`PARITY_FRAMES` frames:
+    the whole scenario is ``scripts/parity.py``'s)."""
+    import numpy as np
+
+    from ground_fusion_tpu_torch.scripts.parity import run_pipeline
+    from ground_fusion_tpu_torch.utils.evaluate import ate_rmse
+
+    t0 = time.perf_counter()
+    est, gt = run_pipeline(n_frames=n_frames, pix_noise=0.0, burst=8, dtype=torch.float32,
+                           device=None if device == "cuda" else device)
+    wall = time.perf_counter() - t0
+    est_xyz = np.stack([p[0:3] for _, p in est.trajectory])
+    ate = float(ate_rmse(est_xyz, np.stack([gt[t][0:3] for t, _ in est.trajectory])))
+    check(est.core.state.poses.device.type == device and est.reboots == 0, "parity: state or reboot")
+    check(BURST_CHUNK in est._burst_flushed_sizes, f"parity: chunks {est._burst_flushed_sizes}")
+    check(ate < PARITY_BOUND_M, f"parity: vio_wheel_exact ATE {ate:.5f} m not below {PARITY_BOUND_M}")
+    print(f"parity: vio_wheel_exact float32 on {device}, {n_frames} frames in bursts of 8, "
+          f"{len(est.trajectory)} poses, chunks {est._burst_flushed_sizes}, ATE {ate!r} m "
+          f"(bound {PARITY_BOUND_M} m), {wall:.1f} s", flush=True)
+
+
+def phase_last_modules(torch, work_dir, main_times):
+    """Phase 14; returns the launches of its CLI drive."""
+    t0 = time.perf_counter()
+    phase_stereo_factors(torch)
+    phase_native()
+    phase_train_detector(torch)
+    counts = phase_synth_cli(torch, work_dir)
+    phase_profile_step(torch)
+    phase_parity(torch)
+    print(f"last modules: phase 14 took {time.perf_counter() - t0:.1f} s, phase 4 "
+          f"{main_times['phase_s']:.1f} s", flush=True)
+    return counts
+
+
 # ------------------------------------------------------------------------ main
 
 
@@ -4107,23 +4409,31 @@ def main() -> int:
         print("chip_smoke: kernel phases passed; main path not run")
         return 0
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.environ.get("TMPDIR"))
-    try:
-        main_counts, main_times = phase_main(torch, work_dir)
-        revisit_counts = phase_revisit(torch, work_dir)
-        phase_solvers(torch, work_dir)
-        gnss_counts = phase_gnss(torch, work_dir, main_times)
-        path_c_counts = phase_path_c(torch, work_dir, main_times)
-        phase_map(torch, work_dir)
-        line_counts = phase_lines(torch, work_dir, main_times)
-        mode_counts = phase_modes(torch, work_dir, main_times)
+    t_start = time.perf_counter()
+
+    def timed(phase, fn, *args):
         t0 = time.perf_counter()
-        ckpt_counts = phase_checkpoint(torch, work_dir)
-        print(f"checkpoint: phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
-        dyn_counts = phase_dynamic_cameras(torch, work_dir, main_times)
+        out = fn(*args)
+        print(f"phase {phase} took {time.perf_counter() - t0:.1f} s "
+              f"({time.perf_counter() - t_start:.1f} s since phase 4 began)", flush=True)
+        return out
+
+    try:
+        main_counts, main_times = timed(4, phase_main, torch, work_dir)
+        revisit_counts = timed(5, phase_revisit, torch, work_dir)
+        timed(6, phase_solvers, torch, work_dir)
+        gnss_counts = timed(7, phase_gnss, torch, work_dir, main_times)
+        path_c_counts = timed(8, phase_path_c, torch, work_dir, main_times)
+        timed(9, phase_map, torch, work_dir)
+        line_counts = timed(10, phase_lines, torch, work_dir, main_times)
+        mode_counts = timed(11, phase_modes, torch, work_dir, main_times)
+        ckpt_counts = timed(12, phase_checkpoint, torch, work_dir)
+        dyn_counts = timed(13, phase_dynamic_cameras, torch, work_dir, main_times)
+        last_counts = timed(14, phase_last_modules, torch, work_dir, main_times)
         for name, entry in entries.items():
             entry["launches"] = (main_counts[name] + revisit_counts[name] + gnss_counts[name]
                                  + path_c_counts[name] + line_counts[name] + mode_counts[name]
-                                 + ckpt_counts[name] + dyn_counts[name])
+                                 + ckpt_counts[name] + dyn_counts[name] + last_counts[name])
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(card)

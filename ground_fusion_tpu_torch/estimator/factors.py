@@ -20,8 +20,10 @@ Reference cost functions reproduced here:
            ``motion_factor.h``
 
 All residuals return *whitened* values (pre-multiplied by sqrt information),
-matching how the reference feeds Ceres. The stereo projection forms are not
-ported yet.
+matching how the reference feeds Ceres. The stereo projection forms
+(``projectionTwoFrameTwoCamFactor``, ``projectionOneFrameTwoCamFactor``) are
+here as in the JAX package; no step calls them in either package (the stereo
+front end feeds depth through ``proj21``).
 """
 
 from __future__ import annotations
@@ -295,3 +297,67 @@ def huber_weight(sq_norm: Tensor, delta) -> Tensor:
     definitions): weight 1 up to ‖r‖ = δ, δ/‖r‖ beyond."""
     n = torch.sqrt(torch.clamp(sq_norm, min=1e-20))
     return torch.sqrt(torch.where(n <= delta, torch.ones_like(n), delta / n))
+
+
+# ---------------------------------------------------------------------------
+# Stereo projection factors (two cameras)
+# ---------------------------------------------------------------------------
+
+
+def proj22_residual_raw(pose_i, pose_j, ex0, ex1, inv_dep, td,
+                        pts_i, pts_j, vel_i, vel_j, td_i, td_j):
+    """projectionTwoFrameTwoCamFactor <2,7,7,7,7,1,1>: anchor obs in cam0 of
+    frame i, target obs in cam1 of frame j."""
+    pts_i_td = pts_i - (td - td_i) * vel_i
+    pts_j_td = pts_j - (td - td_j) * vel_j
+    pts_cam_i = pts_i_td / inv_dep
+    pts_imu_i = quat_rotate(rot(ex0), pts_cam_i) + trans(ex0)
+    pts_w = quat_rotate(rot(pose_i), pts_imu_i) + trans(pose_i)
+    pts_imu_j = quat_rotate_inv(rot(pose_j), pts_w - trans(pose_j))
+    pts_cam_j = quat_rotate_inv(rot(ex1), pts_imu_j - trans(ex1))
+    return pts_cam_j[..., 0:2] / pts_cam_j[..., 2:3] - pts_j_td[..., 0:2]
+
+
+def proj22_factor(pose_i, pose_j, ex0, ex1, inv_dep, td, obs, sqrt_info_scale):
+    """Whitened residual + Jacobian wrt [δpose_i(6), δpose_j(6), δex0(6),
+    δex1(6), δλ, δtd] → (r[2], J[2,26])."""
+    pts_i, pts_j = obs[0:3], obs[3:6]
+    vel_i, vel_j = obs[6:9], obs[9:12]
+    td_i, td_j = obs[12], obs[13]
+
+    def r_of(d):
+        return sqrt_info_scale * proj22_residual_raw(
+            pose_boxplus(pose_i, d[0:6]), pose_boxplus(pose_j, d[6:12]),
+            pose_boxplus(ex0, d[12:18]), pose_boxplus(ex1, d[18:24]),
+            inv_dep + d[24], td + d[25],
+            pts_i, pts_j, vel_i, vel_j, td_i, td_j,
+        )
+
+    return _jac_and_value(r_of, torch.zeros(26, dtype=pose_i.dtype, device=pose_i.device))
+
+
+def proj12_residual_raw(ex0, ex1, inv_dep, td, pts_i, pts_j, vel_i, vel_j, td_i, td_j):
+    """projectionOneFrameTwoCamFactor <2,7,7,1,1>: same frame, cam0 → cam1."""
+    pts_i_td = pts_i - (td - td_i) * vel_i
+    pts_j_td = pts_j - (td - td_j) * vel_j
+    pts_cam_i = pts_i_td / inv_dep
+    pts_imu = quat_rotate(rot(ex0), pts_cam_i) + trans(ex0)
+    pts_cam_j = quat_rotate_inv(rot(ex1), pts_imu - trans(ex1))
+    return pts_cam_j[..., 0:2] / pts_cam_j[..., 2:3] - pts_j_td[..., 0:2]
+
+
+def proj12_factor(ex0, ex1, inv_dep, td, obs, sqrt_info_scale):
+    """Whitened residual + Jacobian wrt [δex0(6), δex1(6), δλ, δtd] →
+    (r[2], J[2,14])."""
+    pts_i, pts_j = obs[0:3], obs[3:6]
+    vel_i, vel_j = obs[6:9], obs[9:12]
+    td_i, td_j = obs[12], obs[13]
+
+    def r_of(d):
+        return sqrt_info_scale * proj12_residual_raw(
+            pose_boxplus(ex0, d[0:6]), pose_boxplus(ex1, d[6:12]),
+            inv_dep + d[12], td + d[13],
+            pts_i, pts_j, vel_i, vel_j, td_i, td_j,
+        )
+
+    return _jac_and_value(r_of, torch.zeros(14, dtype=ex0.dtype, device=ex0.device))

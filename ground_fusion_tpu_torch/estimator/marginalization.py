@@ -48,15 +48,45 @@ from .layout import PER_FRAME, StateLayout
 from .window import Tracks, WindowState, boxminus, slide_new_state, slide_old_state
 
 
+def _eigh_or_nan(A: Tensor, skip=None):
+    """``torch.linalg.eigh(A)`` that never raises, batched over leading axes.
+
+    ``torch.linalg.eigh`` raises ``LinAlgError`` where LAPACK (or cuSOLVER)
+    does not converge, on a NaN input among others; ``jnp.linalg.eigh``
+    returns NaN there. Here a non-finite matrix, and every matrix where
+    ``skip`` is set (its result is selected away), is replaced by the
+    identity before the call, which always converges; a non-finite matrix
+    gets NaN eigenvalues (and the identity's eigenvectors). A float32 call
+    that raises on a finite matrix is made again in float64 and rounded
+    back (torch's float32 solver failed on a CPU on an H that
+    ``jnp.linalg.eigh`` decomposes); if that raises too, the whole batch
+    gets NaN eigenpairs. The call already waits for the solver's status,
+    so the catch adds no host read. The eigenvectors keep the solver's
+    memory layout, so every product with them rounds as before."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    bad = ~torch.all(torch.isfinite(A), dim=(-2, -1))
+    away = bad if skip is None else bad | skip
+    A_in = torch.where(away[..., None, None], eye, A)
+    for dtype in dict.fromkeys((A.dtype, torch.float64)):
+        try:
+            s, V = (x.to(A.dtype) for x in torch.linalg.eigh(A_in.to(dtype)))
+            return torch.where(bad[..., None], torch.full_like(s, float("nan")), s), V
+        except torch.linalg.LinAlgError:
+            pass
+    return torch.full_like(A[..., 0], float("nan")), torch.full_like(A, float("nan"))
+
+
 def _clipped_pinv(A: Tensor, eps: float = 1e-8):
     """Eigendecomposition pseudo-inverse with small-eigenvalue clipping
     (marginalization_factor.cpp:278-285 ``saes.eigenvalues().array() > eps``),
-    batched over leading axes."""
+    batched over leading axes. A matrix whose ``eigh`` fails gives NaN, as
+    ``jnp.linalg.eigh`` does, not a raise (:func:`_eigh_or_nan`)."""
     A = 0.5 * (A + A.mT)
-    s, V = torch.linalg.eigh(A)
+    s, V = _eigh_or_nan(A)
     ok = s > eps
     s_inv = torch.where(ok, 1.0 / torch.where(ok, s, torch.ones_like(s)), torch.zeros_like(s))
-    return (V * s_inv[..., None, :]) @ V.mT
+    P = (V * s_inv[..., None, :]) @ V.mT
+    return torch.where(torch.isnan(s[..., :1, None]), torch.full_like(P, float("nan")), P)
 
 
 def _sqrt_factorize(H: Tensor, b: Tensor, eps: float = 1e-8):
@@ -72,7 +102,18 @@ def _sqrt_factorize(H: Tensor, b: Tensor, eps: float = 1e-8):
     ``lax.cond``): the choice needs no host read of the status, so a burst
     of steps and the fleet's ``vmap`` run it as they run the rest of the
     step (on CUDA the eigendecomposition still synchronizes the host, as
-    every ``torch.linalg.eigh`` of the step does)."""
+    every ``torch.linalg.eigh`` of the step does).
+
+    Where the Cholesky succeeded, ``eigh`` is handed the identity
+    (:func:`_eigh_or_nan` with ``skip``), so the Cholesky factor never
+    depends on ``eigh`` converging (a float32 ``eigh`` of a finite H did not
+    converge on a CPU and raised, ending the run, where the Cholesky had
+    succeeded and where it had failed). Where the Cholesky fails, a float32
+    ``eigh`` that raises is made again in float64. Where that fails too, the eigenvalues are NaN, as
+    ``jnp.linalg.eigh`` gives them, the clip drops every direction and the
+    prior is zero, as in the JAX package: the step keeps its solved state,
+    the next window starts without the marginalized information, and the
+    process goes on."""
     H = 0.5 * (H + H.mT)
     n = H.shape[-1]
     dtype = H.dtype
@@ -86,7 +127,7 @@ def _sqrt_factorize(H: Tensor, b: Tensor, eps: float = 1e-8):
     L = torch.where(chol_ok, L, torch.eye(n, dtype=dtype, device=H.device))
     r_chol = torch.linalg.solve_triangular(L, b[:, None], upper=False)[:, 0]
 
-    s, V = torch.linalg.eigh(H)
+    s, V = _eigh_or_nan(H, skip=chol_ok)
     ok = s > eps
     sqrt_s = torch.sqrt(torch.where(ok, s, torch.ones_like(s)))
     J_eig = torch.where(ok[:, None], sqrt_s[:, None] * V.T, torch.zeros_like(V))

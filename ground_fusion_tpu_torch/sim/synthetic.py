@@ -220,3 +220,112 @@ def project_segments(pose7, ex_cam, segs_w):
            & (torch.abs(ua[..., 0]) < 0.9) & (torch.abs(ua[..., 1]) < 0.7)
            & (torch.abs(ub[..., 0]) < 0.9) & (torch.abs(ub[..., 1]) < 0.7))
     return torch.cat([ua, ub], dim=-1), vis
+
+
+def _padded_interval(t0, t1, rate: float, cap: int, what: str, samples, sample):
+    """``samples(ts)`` at ``rate`` over (t0, t1], padded to ``cap``, and
+    ``sample(t0)``: (dts [cap], a [cap,3], b [cap,3], valid [cap], a0, b0),
+    NumPy float64."""
+    dt = 1.0 / rate
+    ts = np.arange(t0 + dt, t1 + 0.5 * dt, dt)
+    k = len(ts)
+    assert k <= cap, f"{what} interval needs {k} > cap {cap}"
+    a, b = (x.numpy() for x in samples(ts)) if k else (np.zeros((0, 3)), np.zeros((0, 3)))
+    a0, b0 = (x.numpy() for x in sample(t0))
+    dts = np.full(cap, 0.0)
+    dts[:k] = np.diff(np.concatenate([[t0], ts]))
+    out_a, out_b = np.zeros((cap, 3)), np.zeros((cap, 3))
+    out_a[:k], out_b[:k] = a, b
+    valid = np.zeros(cap, bool)
+    valid[:k] = True
+    return dts, out_a, out_b, valid, a0, b0
+
+
+def imu_interval(t0, t1, sp: SimParams, cap: int, rng=None):
+    """Padded IMU samples covering (t0, t1]: returns (dts[K], acc[K,3],
+    gyr[K,3], valid[K], acc0, gyr0) — the shape the window buffers take —
+    as NumPy float64; with ``acc_noise`` and an ``rng``, noise is added to
+    the samples after t0, drawn as the JAX package draws it."""
+    dts, acc, gyr, valid, acc0, gyr0 = _padded_interval(
+        t0, t1, sp.imu_rate, cap, "IMU", lambda ts: imu_samples(ts, sp),
+        lambda t: imu_sample(t, sp))
+    k = int(valid.sum())
+    if rng is not None and sp.acc_noise > 0:
+        acc[:k] = acc[:k] + rng.normal(0, sp.acc_noise, (k, 3))
+        gyr[:k] = gyr[:k] + rng.normal(0, sp.gyr_noise, (k, 3))
+    return dts, acc, gyr, valid, acc0, gyr0
+
+
+def wheel_interval(t0, t1, sp: SimParams, cap: int, rng=None):
+    """Padded wheel samples covering (t0, t1]: (dts[K], vel[K,3], gyr[K,3],
+    valid[K], vel0, gyr0), NumPy float64 (the wheel takes no noise)."""
+    return _padded_interval(t0, t1, sp.wheel_rate, cap, "wheel",
+                            lambda ts: wheel_samples(ts, sp), lambda t: wheel_sample(t, sp))
+
+
+def build_window_problem(cfg, sp: SimParams, t_start: float = 0.0, dtype=F64, device=None):
+    """A ground-truth window: exact poses, velocities and biases, feature
+    tracks from projected landmarks, and padded IMU/wheel buffers — the
+    standing fixture of the solver and marginalization tests, as the JAX
+    package's ``build_window_problem`` builds it from the same ``cfg``,
+    ``sp`` and seeds. Computed in float64 on the CPU, then moved to
+    ``dtype`` on ``device`` (``None``: the GPU). Returns a dict of
+    ``state``, ``tracks``, ``imu_buf``, ``wheel_buf``, ``interval_valid``,
+    ``ts`` (NumPy), ``pts_w`` and ``ex_cam``."""
+    from .. import resolve_device
+    from ..estimator.buffers import ImuWindowBuffer, WheelWindowBuffer
+    from ..estimator.window import Tracks, empty_state
+
+    dev = resolve_device(device)
+    kw = dict(dtype=dtype, device=dev)
+    f = cfg.num_frames
+    ml = cfg.solver.max_landmarks
+    ts = t_start + np.arange(f) * (1.0 / sp.frame_rate)
+
+    ex = body_T_cam(dtype)
+    poses = vmap(lambda t: gt_pose7(t, sp))(_t(ts)).to(dtype)
+    vels = vmap(lambda t: gt_velocity(t, sp))(_t(ts))
+    sbs = torch.cat([vels, _t(sp.ba).expand(f, 3), _t(sp.bg).expand(f, 3)], dim=-1)
+    state = empty_state(f, **kw)._replace(poses=poses.to(dev), sbs=sbs.to(**kw), ex_cam=ex.to(dev))
+
+    # landmarks -> tracks, projected in ``dtype`` as in the JAX package
+    pts_w = _t(make_landmarks(ml, sp, seed=sp.seed + 1)).to(dtype)
+    uv, z, vis = vmap(lambda p7: project_landmarks(p7, ex, pts_w))(poses)
+    uv, z, vis = uv.transpose(0, 1), z.transpose(0, 1), vis.transpose(0, 1).numpy()   # [ML, F, ·]
+    rng = np.random.default_rng(sp.seed + 2)
+    if sp.pix_noise > 0:
+        uv = uv + torch.as_tensor(rng.normal(0, sp.pix_noise, tuple(uv.shape)), dtype=dtype)
+    start_frame = np.argmax(vis, axis=1)
+    active = torch.as_tensor(vis.sum(axis=1) >= 4)
+    obs = torch.cat([uv, torch.zeros((ml, f, 2), dtype=dtype), z[..., None]], dim=-1)
+    anchor_z = z[torch.arange(ml), torch.as_tensor(start_frame)]
+    vis_t = torch.as_tensor(vis)
+    tracks = Tracks(
+        inv_depth=1.0 / torch.clamp(anchor_z, min=1e-3),
+        active=active,
+        solve_ok=active.clone(),
+        depth_fixed=torch.zeros(ml, dtype=torch.bool),
+        start_frame=torch.as_tensor(start_frame, dtype=torch.int64),
+        obs=obs * vis_t.to(dtype)[..., None],
+        obs_valid=vis_t,
+    )
+    tracks = Tracks(*[t.to(dev) for t in tracks])
+
+    # sensor buffers
+    ibuf, wbuf = [], []
+    for k in range(f):
+        t0 = ts[k - 1] if k > 0 else ts[0]
+        t1 = ts[k] if k > 0 else ts[0]
+        ibuf.append(imu_interval(t0, t1, sp, cfg.solver.max_imu_per_interval, rng))
+        wbuf.append(wheel_interval(t0, t1, sp, cfg.solver.max_wheel_per_interval, rng))
+
+    def stacked(rows, i):
+        x = np.stack([r[i] for r in rows])
+        return torch.as_tensor(x, device=dev) if x.dtype == bool else torch.as_tensor(x).to(**kw)
+
+    imu_buf = ImuWindowBuffer(*[stacked(ibuf, i) for i in range(6)])
+    wheel_buf = WheelWindowBuffer(*[stacked(wbuf, i) for i in range(6)],
+                                  bad=torch.zeros(f, dtype=torch.bool, device=dev))
+    return dict(state=state, tracks=tracks, imu_buf=imu_buf, wheel_buf=wheel_buf,
+                interval_valid=torch.as_tensor(np.arange(f) >= 1, device=dev), ts=ts,
+                pts_w=pts_w.to(dev), ex_cam=ex.to(dev))

@@ -5,7 +5,9 @@ The reference wraps tracker/solver/marginalization in ``TicToc``
 (``estimator.h:190-193``; ``printStatistics``). Same surface here. The times
 are host wall-clock: a stage's time includes its device work only when the
 stage ends in a device→host fetch (or a synchronize), as the tracker's and
-the estimator's stages do."""
+the estimator's stages do. :func:`device_trace` records the device's own
+times with ``torch.profiler``, where the JAX package records an XProf
+trace."""
 
 from __future__ import annotations
 
@@ -62,3 +64,27 @@ class StageStats:
             for k in sorted(self.sums)
         ]
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir, host: bool = True):
+    """``torch.profiler`` trace of the block, host and (where a GPU is
+    present) CUDA activity, written into ``log_dir`` as a Chrome/TensorBoard
+    trace (``<host>_<pid>.<ms>.pt.trace.json``; open it in Perfetto,
+    ``chrome://tracing`` or TensorBoard's profiler); with ``log_dir=None``
+    nothing is written. ``host=False`` records the device's kernels alone
+    (on a window step's ~1.5e5 operations the host side makes the trace and
+    its ``key_averages()`` minutes long). Yields the profiler, so the caller
+    can read ``key_averages()`` after the block."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU] if host else []
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    handler = torch.profiler.tensorboard_trace_handler(log_dir) if log_dir else None
+    prof = torch.profiler.profile(activities=acts, on_trace_ready=handler)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()

@@ -2,8 +2,8 @@
 CPU (``tests/test_checkpoint.py`` is the oracle):
 
 - the ``save_core`` archive and ``Estimator.save_state`` snapshot cross-load
-  both ways between the packages, bit for bit, on a core from the JAX
-  package's ``build_window_problem`` (no step run) with the GNSS table and
+  both ways between the packages, bit for bit, on a core from the port's
+  ``build_window_problem`` (no step run) with the GNSS table and
   the host bookkeeping (slots, timestamps, trajectory, GNSS anchor and track
   counts); ``save_state`` refuses unflushed burst frames and ``load_state``
   clears the port's host caches;
@@ -38,7 +38,6 @@ import chip_smoke
 from ground_fusion_tpu.config import Config as JConfig
 from ground_fusion_tpu.global_layers.pose_graph import PoseGraph as JPoseGraph
 from ground_fusion_tpu.pipeline import Estimator as JEstimator
-from ground_fusion_tpu.sim.synthetic import SimParams, build_window_problem
 from ground_fusion_tpu.utils import checkpoint as jckpt
 from ground_fusion_tpu_torch import __main__ as cli
 from ground_fusion_tpu_torch.config import Config as TConfig
@@ -46,12 +45,12 @@ from ground_fusion_tpu_torch.config import load_yaml
 from ground_fusion_tpu_torch.global_layers.dense_map import OccupancyGrid2D, write_cloud_ply
 from ground_fusion_tpu_torch.global_layers.pose_graph import PoseGraph as TPoseGraph
 from ground_fusion_tpu_torch.pipeline import Estimator as TEstimator
+from ground_fusion_tpu_torch.sim.synthetic import SimParams, build_window_problem
 from ground_fusion_tpu_torch.scripts import build_grid as tbuild
 from ground_fusion_tpu_torch.system import GroundFusionSystem
 from ground_fusion_tpu_torch.utils import checkpoint as tckpt
 from ground_fusion_tpu_torch.utils.convert import core_from_numpy, pose_graph_to_numpy
 from ground_fusion_tpu_torch.utils.evaluate import ate_rmse
-from test_torch_assembly import jitted_jax_simulator
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -88,14 +87,20 @@ def _assert_cores_equal(a, b):
 
 @pytest.fixture(scope="module")
 def jax_estimator():
-    """A JAX estimator holding a window from ``build_window_problem`` and
-    hand-set host bookkeeping, as after a solve with GNSS aligned."""
+    """A JAX estimator holding a window from the port's
+    ``build_window_problem`` (the JAX package's arrays at 1e-12,
+    ``test_torch_stereo_sim.py``) and hand-set host bookkeeping, as after a
+    solve with GNSS aligned."""
     cfg = _small(JConfig)
-    with jitted_jax_simulator():
-        prob = build_window_problem(cfg, SimParams(), dtype=jnp.float64)
+    prob = build_window_problem(_small(TConfig), SimParams(), dtype=DT, device=CPU)
     est = JEstimator(cfg, dtype=jnp.float64)
-    est.core = est.core._replace(state=prob["state"], tracks=prob["tracks"],
-                                 imu_buf=prob["imu_buf"], wheel_buf=prob["wheel_buf"])
+
+    def carried(jtable, ttable):
+        return type(jtable)(*[jnp.asarray(t.numpy(), dtype=np.asarray(j).dtype)
+                              for j, t in zip(jtable, ttable)])
+
+    est.core = est.core._replace(**{name: carried(getattr(est.core, name), prob[name])
+                                    for name in ("state", "tracks", "imu_buf", "wheel_buf")})
     rng = np.random.default_rng(0)
     ml = cfg.solver.max_landmarks
     slots = rng.permutation(ml)
@@ -104,7 +109,7 @@ def jax_estimator():
     est.ts = [float(t) for t in prob["ts"]]
     est.slot_of = {int(fid): int(s) for fid, s in zip(rng.choice(1000, 12, replace=False), slots)}
     est.free_slots = [int(s) for s in slots[12:]]
-    est.trajectory = [(t, np.asarray(prob["state"].poses[k], np.float64))
+    est.trajectory = [(t, prob["state"].poses[k].numpy())
                       for k, t in enumerate(est.ts)]
     est.keyframe_flags = [True, False, True, True]
     est.gnss_aligned = True

@@ -43,7 +43,10 @@ def test_no_module_of_the_port_imports_jax():
     walked = set(lines["NAMES"].split())
     for name in ("estimator.sfm", "global_layers.dense_map", "global_layers.meshing",
                  "frontend.lines", "estimator.lines", "detector.model", "detector.train",
-                 "cameras.calibration", "utils.wheel_odom"):
+                 "cameras.calibration", "utils.wheel_odom", "native", "scripts.build_native",
+                 "scripts.train_detector", "scripts.make_synth_seq", "scripts.profile_step",
+                 "scripts.parity", "scripts.long_horizon", "scripts.bow_sweep",
+                 "scripts.convert_bag"):
         assert f"ground_fusion_tpu_torch.{name}" in walked, name
     assert {"make_lm_mesh", "shard_core", "shard_tracks", "gather_core",
             "make_sharded_window_step", "shard_fleet", "make_sharded_pose_graph"} <= set(
@@ -87,7 +90,9 @@ def _no_gpu():
                                    "KeyframeDatabase", "DBoW2Vocabulary", "load_binary",
                                    "GlobalFusion", "VoxelColorMap", "TsdfVolume",
                                    "OccupancyGrid2D", "LineTracker", "load_npz", "init_params",
-                                   "calibrate", "make_sharded_window_step", "cli"])
+                                   "calibrate", "make_sharded_window_step", "cli",
+                                   "build_window_problem", "make_batch", "train",
+                                   "profile_step", "run_pipeline", "bow_sweep"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     """No 'cuda if available else cpu': with no device argument every entry
     point resolves to the GPU, and raises on a machine that has none."""
@@ -96,6 +101,7 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     from ground_fusion_tpu_torch.cameras.calibration import calibrate
     from ground_fusion_tpu_torch.cameras.models import PinholeParams
     from ground_fusion_tpu_torch.detector.model import init_params, load_npz
+    from ground_fusion_tpu_torch.detector.train import make_batch, train
     from ground_fusion_tpu_torch.estimator.step import make_window_step
     from ground_fusion_tpu_torch.frontend.lines import LineTracker
     from ground_fusion_tpu_torch.frontend.tracker import FeatureTracker
@@ -107,6 +113,8 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
     from ground_fusion_tpu_torch.global_layers.pose_graph import PoseGraph
     from ground_fusion_tpu_torch.parallel.sharded import make_sharded_window_step
     from ground_fusion_tpu_torch.pipeline import Estimator
+    from ground_fusion_tpu_torch.scripts import bow_sweep, parity, profile_step
+    from ground_fusion_tpu_torch.sim.synthetic import SimParams, build_window_problem
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = Config()
@@ -136,6 +144,12 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path):
         "init_params": lambda: init_params(),
         "calibrate": lambda: calibrate("pinhole", board, [board * 100.0] * 3),
         "make_sharded_window_step": lambda: make_sharded_window_step(cfg),
+        "build_window_problem": lambda: build_window_problem(cfg, SimParams()),
+        "make_batch": lambda: make_batch(np.random.default_rng(0), 1),
+        "train": lambda: train(steps=1, batch=1),
+        "profile_step": lambda: profile_step.profile(cfg, reps=1),
+        "run_pipeline": lambda: parity.run_pipeline(n_frames=1),
+        "bow_sweep": lambda: bow_sweep.scores(n_scenes=1),
     }
     if entry == "cli":
         r = subprocess.run(
@@ -279,6 +293,8 @@ def test_m2dgrp_config_builds_with_gnss(tmp_path):
     """``configs/m2dgrp.yaml`` (tight GNSS) builds in the port: the estimator
     carries a GNSS table and ingest, the system waits for GPS fixes."""
     from ground_fusion_tpu_torch.pipeline import Estimator
+    from ground_fusion_tpu_torch.scripts import bow_sweep, parity, profile_step
+    from ground_fusion_tpu_torch.sim.synthetic import SimParams, build_window_problem
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = load_yaml(os.path.join(ROOT, "configs", "m2dgrp.yaml"))

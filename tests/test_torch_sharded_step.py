@@ -154,6 +154,28 @@ def test_dense_and_lm_variants_match_unsharded(case, ranks):
     compare_with_unsharded(ranks, case)
 
 
+def test_float32_keyframe_step_keeps_its_cholesky_prior(ranks):
+    """The ``lm`` case in float32 on 2 ranks, keyframe branch, first step:
+    the step whose frame-0 marginalization raised "linalg.eigh: The
+    algorithm failed to converge" on a CPU when ``_sqrt_factorize`` called
+    ``eigh`` on an H whose Cholesky had succeeded. It runs on both ranks and
+    on the unsharded step; the poses and the prior are finite, the prior is
+    valid and not zero (a failed square root leaves a zero prior), and the
+    sharded pose is within 1e-2 of the unsharded one (float32 on an
+    ill-conditioned window, as phase 12d finds on the card)."""
+    r0, single = ranks[0], singles(ranks)
+    assert steps_of(r0, "lm_f32") == [0]
+    for res in ranks:
+        assert res["lm_f32.0.out.pose"].dtype == np.float32
+        assert np.isfinite(res["lm_f32.0.out.poses"]).all()
+        assert np.isfinite(res["lm_f32.0.rep.prior.J0"]).all()
+        assert bool(res["lm_f32.0.rep.prior.valid"])
+    assert np.isfinite(single["lm_f32.0.single.out.poses"]).all()
+    J0 = r0["lm_f32.0.rep.prior.J0"]
+    assert np.abs(J0).max() > 0.0
+    assert np.abs(single["lm_f32.0.single.out.pose"] - r0["lm_f32.0.out.pose"]).max() <= 1e-2
+
+
 def test_ranks_are_bitwise_equal(ranks):
     """Every rank's output and replicated core (state, buffers, prior, GNSS
     table) are bitwise equal, in every step of every case."""
