@@ -367,8 +367,9 @@ def test_build_grid_matches_the_jax_script(tmp_path, capsys):
 @pytest.mark.slow
 def test_cli_save_and_resume_on_the_rendered_sequence(tmp_path):
     """``chip_smoke.py`` phase 12a on the CPU: phase 4's sequence saved
-    after 20 frames through ``--save-state``, the grid built, then resumed
-    over 40 frames with ``--resume``, ``--load-graph`` and ``--load-grid``
+    after ``chip_smoke.CKPT_FRAMES`` (15) frames through ``--save-state``,
+    the grid built, then resumed over its first ``chip_smoke.CKPT_DRIVE``
+    (26) frames with ``--resume``, ``--load-graph`` and ``--load-grid``
     (its checks: nothing fed again, post-snapshot ATE, ids, keyframe
     indices, the republished grid)."""
     seq = str(tmp_path / "seq")
