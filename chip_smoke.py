@@ -2234,49 +2234,6 @@ def phase_lines(torch, work_dir, main_times):
 # -------------------------------------------------------------------------- 11
 
 
-def simulator_drive(n_frames: int, n_landmarks: int = 200, seed: int = 0, sp=None,
-                    segments: int = 0) -> list:
-    """The feature stream of ``tests/test_pipeline.py::run_pipeline`` from
-    the port's simulator (exact projected landmarks, no images, so no
-    tracker can make two runs differ): one entry per frame with its time,
-    the IMU and wheel samples since the previous frame (the first frame
-    carries the samples at t = 0), the visible features as ``id -> (x, y,
-    depth)`` and, with ``segments``, the visible segments' endpoints."""
-    import numpy as np
-    import torch
-
-    from ground_fusion_tpu_torch.sim import synthetic as sim
-
-    sp = sp if sp is not None else sim.SimParams(seed=seed)
-    ex = sim.body_T_cam(torch.float64)
-    pts_w = torch.as_tensor(sim.make_landmarks(n_landmarks, sp, seed=seed + 1))
-    segs_w = torch.as_tensor(sim.make_segments(segments, sp, seed=2)) if segments else None
-    frame_dt, imu_dt, wheel_dt = 1.0 / sp.frame_rate, 1.0 / sp.imu_rate, 1.0 / sp.wheel_rate
-    ts = [k * frame_dt for k in range(n_frames)]
-    t_imu = [np.array([0.0])] + [np.arange(t - frame_dt + imu_dt, t + 0.5 * imu_dt, imu_dt)
-                                 for t in ts[1:]]
-    t_wheel = [np.array([0.0])] + [np.arange(t - frame_dt + wheel_dt, t + 0.5 * wheel_dt, wheel_dt)
-                                   for t in ts[1:]]
-    acc, gyr = (x.numpy() for x in sim.imu_samples(np.concatenate(t_imu), sp))
-    vel, wgyr = (x.numpy() for x in sim.wheel_samples(np.concatenate(t_wheel), sp))
-    drive, i, j = [], 0, 0
-    for k, t in enumerate(ts):
-        ni, nw = len(t_imu[k]), len(t_wheel[k])
-        pose = sim.gt_pose7(t, sp)
-        uv, z, vis = (x.numpy() for x in sim.project_landmarks(pose, ex, pts_w))
-        fr = dict(t=t, gt=pose.numpy(),
-                  imu=list(zip(t_imu[k].tolist(), acc[i : i + ni], gyr[i : i + ni])),
-                  wheel=list(zip(t_wheel[k].tolist(), vel[j : j + nw], wgyr[j : j + nw])),
-                  feats={int(n): (float(uv[n, 0]), float(uv[n, 1]), float(z[n]))
-                         for n in np.nonzero(vis)[0]})
-        if segs_w is not None:
-            obs4, lvis = (x.numpy() for x in sim.project_segments(pose, ex, segs_w))
-            fr["lines"] = {int(n): obs4[n] for n in np.nonzero(lvis)[0]}
-        drive.append(fr)
-        i, j = i + ni, j + nw
-    return drive
-
-
 def filled_core(cfg, dtype, device, b: int = 0):
     """(core, flags) of ``tests/test_burst.py::_filled_core`` in the port: an
     empty window whose every landmark slot is active and observed in every
@@ -2330,23 +2287,6 @@ def flags_batch(flags, margs):
     return type(flags)(*[np.asarray(margs) if name == "marg_old" else
                          (None if v is None else rep(v))
                          for name, v in zip(flags._fields, flags)])
-
-
-def feed_drive(est, drive, frames) -> list:
-    """Feed ``drive[k]`` for ``k`` in ``frames`` to an ``Estimator``; the
-    pose each ``input_frame`` returned (or None), per frame."""
-    from ground_fusion_tpu_torch.pipeline import FrameFeature
-
-    out = []
-    for k in frames:
-        fr = drive[k]
-        for t, a, g in fr["imu"]:
-            est.input_imu(t, a, g)
-        for t, v, w in fr["wheel"]:
-            est.input_wheel(t, v, w)
-        feats = {i: FrameFeature(x=x, y=y, depth=d) for i, (x, y, d) in fr["feats"].items()}
-        out.append(est.input_frame(fr["t"], feats, line_obs=fr.get("lines")))
-    return out
 
 
 def _wall_ms(torch, device, fn, reps: int = 1) -> float:
@@ -2441,14 +2381,14 @@ def phase_modes_cli(torch, work_dir, main_times, device="cuda"):
 
 
 def phase_modes_replay(torch, device="cuda", n_frames=MODES_FRAMES):
-    """11b: per frame and live on the same features (bursts of 8 of the
-    same drive: phase 14f)."""
+    """11b: per frame, live and bursts of 8 on the same features."""
     import copy
 
     import numpy as np
 
     from ground_fusion_tpu_torch.config import Config
     from ground_fusion_tpu_torch.pipeline import Estimator
+    from ground_fusion_tpu_torch.scripts.parity import feed_drive, simulator_drive
 
     cfg = Config()
     drive = simulator_drive(n_frames, n_landmarks=MODES_LANDMARKS)
@@ -2456,10 +2396,12 @@ def phase_modes_replay(torch, device="cuda", n_frames=MODES_FRAMES):
     feed_drive(est, drive, range(cfg.num_frames))
     check(est.solver_flag == Estimator.NON_LINEAR, "modes: the replay did not initialize")
     runs = {}
-    for mode in ("frame", "live"):
+    for mode in ("frame", "live", "burst"):
         e = copy.deepcopy(est)
         if mode == "live":
             e.enable_live()
+        elif mode == "burst":
+            e.enable_burst(BURST_CHUNK)
         t0 = time.perf_counter()
         feed_drive(e, drive, range(cfg.num_frames, n_frames))
         e.flush_burst()
@@ -2468,15 +2410,17 @@ def phase_modes_replay(torch, device="cuda", n_frames=MODES_FRAMES):
     ref = np.stack([p[0:3] for _, p in runs["frame"][0].trajectory])
     n = n_frames - cfg.num_frames
     line = [f"{n} frames after the first solve: per frame {runs['frame'][1]:.1f} s"]
-    e, wall = runs["live"]
-    got = np.stack([p[0:3] for _, p in e.trajectory])
-    check(got.shape == ref.shape, f"modes: live gave {len(got)} poses, per frame {len(ref)}")
-    worst = float(np.abs(got - ref).max())
-    check(worst <= MODES_POSE_TOL_M, f"modes: live poses {worst:.3e} m from per frame")
-    check(e.core.state.poses.device.type == device and e.reboots == 0, "modes: live state or reboot")
-    line.append(f"live {wall:.1f} s (chunks {e._burst_flushed_sizes}, poses at most "
-                f"{worst:.3e} m from per frame)")
-    check(set(e._burst_flushed_sizes) == {1}, "modes: live flushed a chunk of more than 1")
+    for mode in ("live", "burst"):
+        e, wall = runs[mode]
+        got = np.stack([p[0:3] for _, p in e.trajectory])
+        check(got.shape == ref.shape, f"modes: {mode} gave {len(got)} poses, per frame {len(ref)}")
+        worst = float(np.abs(got - ref).max())
+        check(worst <= MODES_POSE_TOL_M, f"modes: {mode} poses {worst:.3e} m from per frame")
+        check(e.core.state.poses.device.type == device and e.reboots == 0,
+              f"modes: {mode} state or reboot")
+        line.append(f"{mode} {wall:.1f} s (chunks {e._burst_flushed_sizes}, poses at most "
+                    f"{worst:.3e} m from per frame)")
+    check(set(runs["live"][0]._burst_flushed_sizes) == {1}, "modes: live flushed a chunk of more than 1")
     print(f"modes: float64 on {device}, {cfg.num_frames}-frame window, "
           f"{cfg.solver.max_landmarks} landmarks: " + "; ".join(line), flush=True)
 
@@ -4348,15 +4292,23 @@ def phase_profile_step(torch, device="cuda", cfg=None):
                                 out=lambda line: print("profile_step: " + line, flush=True))
     if device != "cuda":
         return
-    dev = {r["stage"]: r["device_ms"] for r in rows}
-    # JᵀJ and the Cholesky solve (cuBLAS, cuSOLVER) may show no kernel time
-    # to the profiler; the stages that the step runs, and the step, must
-    check(all(dev[n] is not None and dev[n] > 0 for n in profile_step.TOP_LEVEL + ("step",)),
-          f"profile_step: no device time in {dev}")
-    top = sum(dev[n] for n in profile_step.TOP_LEVEL)
-    check(top <= dev["step"], f"profile_step: the stages' device ms {top:.3f} exceed the "
-                              f"step's {dev['step']:.3f}")
-    print(f"profile_step: the step's stages {top:.3f} device ms of its {dev['step']:.3f}", flush=True)
+    rows = {r["stage"]: r for r in rows}
+    # every stage takes time on the device's clock (CUDA events miss no
+    # kernel); the profiler records kernels in the stages the step runs and
+    # in the step, and their kernel time sums to no more than the step's
+    check(all(r["device_ms"] > 0 for r in rows.values()),
+          f"profile_step: a stage without device time: {rows}")
+    check(all(rows[n]["kernels"] > 0 for n in profile_step.TOP_LEVEL + ("step",)),
+          f"profile_step: the profiler recorded no kernel in a stage: {rows}")
+    top = sum(rows[n]["kernel_ms"] for n in profile_step.TOP_LEVEL)
+    step = rows["step"]
+    check(top <= step["kernel_ms"], f"profile_step: the stages' kernel ms {top:.3f} exceed the "
+                                    f"step's {step['kernel_ms']:.3f}")
+    blind = [n for n, r in rows.items() if r["kernels"] == 0]
+    print(f"profile_step: the step's stages {top:.3f} kernel ms of its {step['kernel_ms']:.3f}; "
+          f"the step's kernels fill {step['kernel_ms'] / step['device_ms']:.4f} of its "
+          f"{step['device_ms']:.3f} device ms; stages where the profiler recorded no kernel: "
+          f"{blind}", flush=True)
 
 
 def phase_parity(torch, device="cuda", n_frames=PARITY_FRAMES):

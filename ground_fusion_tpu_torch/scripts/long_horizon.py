@@ -47,40 +47,22 @@ def prior_cond(est) -> float:
 def run(dtype, n_frames: int, device=None, sample_every: int = SAMPLE_EVERY) -> dict:
     """One replay of ``n_frames`` in ``dtype`` on ``device`` (``None``: the
     GPU)."""
-    import torch
-
     from ..config import Config
-    from ..pipeline import Estimator, FrameFeature
-    from ..sim import synthetic as sim
+    from ..pipeline import Estimator
     from ..utils.evaluate import ate_rmse
-    from .parity import _feed_sensors
+    from .parity import feed_drive, simulator_drive
 
-    sp = sim.SimParams(pix_noise=0.5 / 460.0, seed=0)
     est = Estimator(Config(), dtype=dtype, device=device)
     est.enable_burst(16)
-    ex = sim.body_T_cam(torch.float64)
-    pts_w = torch.as_tensor(sim.make_landmarks(400, sp, seed=1))
-    rng = np.random.default_rng(7)
-    frame_dt = 1.0 / sp.frame_rate
-
-    _feed_sensors(est, sp, None, 0.0)
-    gt, cond_samples = [], []
+    drive = simulator_drive(n_frames, n_landmarks=400, pix_noise=0.5 / 460.0)
+    cond_samples = []
     for k in range(n_frames):
-        t = k * frame_dt
-        if k > 0:
-            _feed_sensors(est, sp, t - frame_dt, t)
-        pose = sim.gt_pose7(t, sp)
-        uv, z, vis = (x.numpy() for x in sim.project_landmarks(pose, ex, pts_w))
-        uv = uv + rng.normal(0, sp.pix_noise, uv.shape)
-        est.input_frame(t, {int(i): FrameFeature(x=float(uv[i, 0]), y=float(uv[i, 1]),
-                                                 depth=float(z[i]))
-                            for i in np.nonzero(vis)[0]})
-        gt.append((t, pose.numpy()))
+        feed_drive(est, drive, [k])
         if (k + 1) % sample_every == 0:
             est.flush_burst()
             cond_samples.append({"frame": k + 1, "cond": prior_cond(est)})
     est.flush_burst()
-    gt = dict(gt)
+    gt = {fr["t"]: fr["gt"] for fr in drive}
     est_xyz = np.stack([p[0:3] for _, p in est.trajectory])
     gt_xyz = np.stack([gt[t][0:3] for t, _ in est.trajectory])
     return {

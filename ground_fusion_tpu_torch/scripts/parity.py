@@ -19,7 +19,8 @@ the same bounds: 0.05, 0.15 and 0.1 m.
 ``PARITY_TPU.md`` is its own record and is never written). ``--frames N``
 shortens every replay (a rehearsal: the bounds are the full replays').
 The drives are :func:`run_pipeline` and :func:`run_gnss_pipeline`, the
-suite's drivers on the port's simulator.
+suite's drivers on the port's simulator, both fed from
+:func:`simulator_drive`.
 """
 
 from __future__ import annotations
@@ -44,72 +45,102 @@ YAW_TRUE = 0.25
 ANC_LLA = (31.0, 121.4, 12.0)       # degrees, degrees, m
 
 
-def _feed_sensors(est, sp, t_prev, t, with_wheel=True):
-    """The IMU (and wheel) samples of the interval (t_prev, t], or the
-    samples at t = 0 when ``t_prev`` is None."""
-    from ..sim import synthetic as sim
-
-    def times(rate):
-        if t_prev is None:
-            return np.array([t])
-        dt = 1.0 / rate
-        return np.arange(t_prev + dt, t + 0.5 * dt, dt)
-
-    ts = times(sp.imu_rate)
-    for ti, a, g in zip(ts, *(x.numpy() for x in sim.imu_samples(ts, sp))):
-        est.input_imu(float(ti), a, g)
-    if with_wheel:
-        ts = times(sp.wheel_rate)
-        for ti, v, w in zip(ts, *(x.numpy() for x in sim.wheel_samples(ts, sp))):
-            est.input_wheel(float(ti), v, w)
-
-
-def run_pipeline(n_frames=35, pix_noise=0.0, with_depth=True, seed=0, cfg=None,
-                 n_landmarks=200, burst=0, sp=None, drop_feats=None, dtype=None,
-                 device=None):
-    """``tests/test_pipeline.py::run_pipeline`` on the port: the simulator's
-    IMU, wheel and exact projected landmarks (plus ``pix_noise``, drawn from
-    ``default_rng(seed + 7)``) fed frame by frame to an ``Estimator`` of
-    ``dtype`` on ``device`` (``None``: float64, the GPU), in bursts of
-    ``burst`` when it is set. ``sp`` overrides the simulator;
-    ``drop_feats(k)`` keeps a fraction of frame k's features. Returns
-    (estimator, {t: ground-truth pose})."""
+def simulator_drive(n_frames: int, n_landmarks: int = 200, sp=None, pix_noise: float = 0.0,
+                    segments: int = 0) -> list:
+    """The sensor and feature stream of ``tests/test_pipeline.py::run_pipeline``
+    from the port's simulator (``sp``, default ``SimParams()``): one entry
+    per frame with its time ``t``, its ground-truth pose ``gt``, the IMU and
+    wheel samples since the previous frame (the first frame carries the
+    samples at t = 0), the visible landmarks of ``n_landmarks`` (seed 1) as
+    ``feats``, ``id -> (x, y, depth)`` in id order, projected exactly plus
+    ``pix_noise`` (drawn from ``default_rng(7)`` over every landmark, frame
+    after frame), and, with ``segments``, the visible segments' endpoints
+    as ``lines``."""
     import torch
 
-    from ..config import Config
-    from ..pipeline import Estimator, FrameFeature
     from ..sim import synthetic as sim
 
-    cfg = cfg if cfg is not None else Config()
-    sp = sp if sp is not None else sim.SimParams(pix_noise=pix_noise, seed=seed)
-    est = Estimator(cfg, dtype=dtype or torch.float64, device=device)
-    if burst:
-        est.enable_burst(burst)
+    sp = sp if sp is not None else sim.SimParams()
     ex = sim.body_T_cam(torch.float64)
-    pts_w = torch.as_tensor(sim.make_landmarks(n_landmarks, sp, seed=seed + 1))
-    rng = np.random.default_rng(seed + 7)
-    frame_dt = 1.0 / sp.frame_rate
-
-    _feed_sensors(est, sp, None, 0.0, cfg.wheel.enabled)
-    gt = []
-    for k in range(n_frames):
-        t = k * frame_dt
-        if k > 0:
-            _feed_sensors(est, sp, t - frame_dt, t, cfg.wheel.enabled)
+    pts_w = torch.as_tensor(sim.make_landmarks(n_landmarks, sp, seed=1))
+    segs_w = torch.as_tensor(sim.make_segments(segments, sp, seed=2)) if segments else None
+    rng = np.random.default_rng(7)
+    frame_dt, imu_dt, wheel_dt = 1.0 / sp.frame_rate, 1.0 / sp.imu_rate, 1.0 / sp.wheel_rate
+    ts = [k * frame_dt for k in range(n_frames)]
+    t_imu = [np.array([0.0])] + [np.arange(t - frame_dt + imu_dt, t + 0.5 * imu_dt, imu_dt)
+                                 for t in ts[1:]]
+    t_wheel = [np.array([0.0])] + [np.arange(t - frame_dt + wheel_dt, t + 0.5 * wheel_dt, wheel_dt)
+                                   for t in ts[1:]]
+    acc, gyr = (x.numpy() for x in sim.imu_samples(np.concatenate(t_imu), sp))
+    vel, wgyr = (x.numpy() for x in sim.wheel_samples(np.concatenate(t_wheel), sp))
+    drive, i, j = [], 0, 0
+    for k, t in enumerate(ts):
+        ni, nw = len(t_imu[k]), len(t_wheel[k])
         pose = sim.gt_pose7(t, sp)
         uv, z, vis = (x.numpy() for x in sim.project_landmarks(pose, ex, pts_w))
         if pix_noise > 0:
             uv = uv + rng.normal(0, pix_noise, uv.shape)
-        keep_ids = np.nonzero(vis)[0]
-        if drop_feats is not None:
-            keep_ids = keep_ids[: max(0, int(round(float(drop_feats(k)) * len(keep_ids))))]
-        est.input_frame(t, {int(i): FrameFeature(x=float(uv[i, 0]), y=float(uv[i, 1]),
-                                                 depth=float(z[i]) if with_depth else 0.0)
-                            for i in keep_ids})
-        gt.append((t, pose.numpy()))
+        fr = dict(t=t, gt=pose.numpy(),
+                  imu=list(zip(t_imu[k].tolist(), acc[i : i + ni], gyr[i : i + ni])),
+                  wheel=list(zip(t_wheel[k].tolist(), vel[j : j + nw], wgyr[j : j + nw])),
+                  feats={int(n): (float(uv[n, 0]), float(uv[n, 1]), float(z[n]))
+                         for n in np.nonzero(vis)[0]})
+        if segs_w is not None:
+            obs4, lvis = (x.numpy() for x in sim.project_segments(pose, ex, segs_w))
+            fr["lines"] = {int(n): obs4[n] for n in np.nonzero(lvis)[0]}
+        drive.append(fr)
+        i, j = i + ni, j + nw
+    return drive
+
+
+def feed_sensors(est, fr) -> None:
+    """A drive entry's IMU and wheel samples into an estimator (either
+    package's: both take NumPy samples)."""
+    for t, a, g in fr["imu"]:
+        est.input_imu(t, a, g)
+    for t, v, w in fr["wheel"]:
+        est.input_wheel(t, v, w)
+
+
+def feed_frame(est, fr):
+    """A drive entry's features (and lines) into the port's ``Estimator``;
+    what ``input_frame`` returned."""
+    from ..pipeline import FrameFeature
+
+    feats = {i: FrameFeature(x=x, y=y, depth=d) for i, (x, y, d) in fr["feats"].items()}
+    return est.input_frame(fr["t"], feats, line_obs=fr.get("lines"))
+
+
+def feed_drive(est, drive, frames) -> list:
+    """Feed ``drive[k]`` for ``k`` in ``frames`` to an ``Estimator``; the
+    pose each ``input_frame`` returned (or None), per frame."""
+    out = []
+    for k in frames:
+        feed_sensors(est, drive[k])
+        out.append(feed_frame(est, drive[k]))
+    return out
+
+
+def run_pipeline(n_frames=35, pix_noise=0.0, burst=0, cfg=None, dtype=None, device=None):
+    """``tests/test_pipeline.py::run_pipeline`` on the port: the
+    :func:`simulator_drive` fed frame by frame to an ``Estimator`` of
+    ``cfg`` (default ``Config()``) in ``dtype`` on ``device`` (``None``:
+    float64, the GPU), in bursts of ``burst`` when it is set. Returns
+    (estimator, {t: ground-truth pose})."""
+    import torch
+
+    from ..config import Config
+    from ..pipeline import Estimator
+
+    est = Estimator(cfg if cfg is not None else Config(), dtype=dtype or torch.float64,
+                    device=device)
+    if burst:
+        est.enable_burst(burst)
+    drive = simulator_drive(n_frames, pix_noise=pix_noise)
+    feed_drive(est, drive, range(n_frames))
     if burst:
         est.flush_burst()
-    return est, dict(gt)
+    return est, {fr["t"]: fr["gt"] for fr in drive}
 
 
 class GnssTruth:
@@ -150,13 +181,12 @@ class GnssTruth:
                                 np.array([15.0, 0.0, 0.0, 22.0]), 4.0)
 
 
-def run_gnss_pipeline(burst=0, epoch_every=1, n_frames=30, outage=None, dtype=None,
-                      device=None, cfg=None):
+def run_gnss_pipeline(n_frames=30, epoch_every=1, cfg=None, dtype=None, device=None):
     """``tests/test_pipeline.py::_run_gnss_pipeline`` on the port (the
     default config with tight GNSS, ``track_num_thresh`` 1, unless ``cfg``
-    is given): epochs every frame
-    until GNSS-VI alignment, then every ``epoch_every`` frames, none in the
-    frame range ``outage``. Returns the estimator with ``last_ate`` (ATE
+    is given): the :func:`simulator_drive` with an epoch of
+    :class:`GnssTruth` every frame until GNSS-VI alignment, then every
+    ``epoch_every`` frames. Returns the estimator with ``last_ate`` (ATE
     against the truth) and ``last_ecef_err`` (the newest pose in ECEF
     against the truth; NaN without alignment) set, without asserting them."""
     import dataclasses
@@ -165,7 +195,7 @@ def run_gnss_pipeline(burst=0, epoch_every=1, n_frames=30, outage=None, dtype=No
 
     from ..config import Config
     from ..gnss.coords import ecef2rotation
-    from ..pipeline import Estimator, FrameFeature
+    from ..pipeline import Estimator
     from ..sim import synthetic as sim
     from ..utils.evaluate import ate_rmse
 
@@ -173,32 +203,15 @@ def run_gnss_pipeline(burst=0, epoch_every=1, n_frames=30, outage=None, dtype=No
         cfg = Config()
         cfg = dataclasses.replace(cfg, gnss=dataclasses.replace(cfg.gnss, enabled=True,
                                                                 track_num_thresh=1))
-    sp = sim.SimParams()
     est = Estimator(cfg, dtype=dtype or torch.float64, device=device)
-    if burst:
-        est.enable_burst(burst)
-    ex = sim.body_T_cam(torch.float64)
-    pts_w = torch.as_tensor(sim.make_landmarks(200, sp, seed=1))
-    truth = GnssTruth(sp)
-    frame_dt = 1.0 / sp.frame_rate
-
-    _feed_sensors(est, sp, None, 0.0)
-    gt = {}
-    for k in range(n_frames):
-        t = k * frame_dt
-        if k > 0:
-            _feed_sensors(est, sp, t - frame_dt, t)
-        in_outage = outage is not None and outage[0] <= k < outage[1]
-        if (k % epoch_every == 0 or not est.gnss_aligned) and not in_outage:
-            est.input_gnss(t, truth.epoch(t))
-        pose = sim.gt_pose7(t, sp)
-        uv, z, vis = (x.numpy() for x in sim.project_landmarks(pose, ex, pts_w))
-        est.input_frame(t, {int(i): FrameFeature(x=float(uv[i, 0]), y=float(uv[i, 1]),
-                                                 depth=float(z[i]))
-                            for i in np.nonzero(vis)[0]})
-        gt[t] = pose.numpy()
-    if burst:
-        est.flush_burst()
+    truth = GnssTruth(sim.SimParams())
+    drive = simulator_drive(n_frames)
+    for k, fr in enumerate(drive):
+        feed_sensors(est, fr)
+        if k % epoch_every == 0 or not est.gnss_aligned:
+            est.input_gnss(fr["t"], truth.epoch(fr["t"]))
+        feed_frame(est, fr)
+    gt = {fr["t"]: fr["gt"] for fr in drive}
 
     est_xyz = np.stack([p[0:3] for _, p in est.trajectory])
     est.last_ate = float(ate_rmse(est_xyz, np.stack([gt[t][0:3] for t, _ in est.trajectory])))

@@ -74,17 +74,31 @@ def device_trace(log_dir, host: bool = True):
     ``chrome://tracing`` or TensorBoard's profiler); with ``log_dir=None``
     nothing is written. ``host=False`` records the device's kernels alone
     (on a window step's ~1.5e5 operations the host side makes the trace and
-    its ``key_averages()`` minutes long). Yields the profiler, so the caller
-    can read ``key_averages()`` after the block."""
+    its ``key_averages()`` minutes long). The profiler's warm-up step
+    (tracing on, results discarded) runs first, over a few small kernels, a
+    synchronize and 50 ms, so that the block is recorded by a profiler
+    already running. Yields the profiler, so the caller can read
+    ``key_averages()`` after the block."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU] if host else []
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     handler = torch.profiler.tensorboard_trace_handler(log_dir) if log_dir else None
-    prof = torch.profiler.profile(activities=acts, on_trace_ready=handler)
+    prof = torch.profiler.profile(activities=acts, on_trace_ready=handler,
+                                  schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                                   repeat=1))
     prof.start()
     try:
+        x = torch.zeros(1, device="cuda" if cuda else "cpu")
+        for _ in range(8):
+            x.add_(1.0)
+        if cuda:
+            torch.cuda.synchronize()
+        time.sleep(0.05)
+        prof.step()
         yield prof
     finally:
+        prof.step()
         prof.stop()

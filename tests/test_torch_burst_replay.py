@@ -1,7 +1,7 @@
 """The port's execution modes at the pipeline level: ``Estimator`` replays of
-the simulator drive (``chip_smoke.simulator_drive``, the feature stream of
-``tests/test_pipeline.py::run_pipeline``) per frame, in live mode and in
-burst mode, against the port's own per-frame path (which
+the simulator drive (``scripts/parity.py::simulator_drive``, the feature
+stream of ``tests/test_pipeline.py::run_pipeline``) per frame, in live mode
+and in burst mode, against the port's own per-frame path (which
 ``test_torch_pipeline.py`` holds to the JAX package), on the cases of
 ``tests/test_burst.py``, in float64 on the CPU at ``window_size=4``,
 ``max_landmarks=32`` and 2 dogleg iterations:
@@ -30,10 +30,10 @@ import torch
 
 torch.set_num_threads(1)      # small tensors; leave the cores to the other test workers
 
-import chip_smoke
 from ground_fusion_tpu_torch.config import Config
 from ground_fusion_tpu_torch.estimator.step import make_window_burst_ingest
 from ground_fusion_tpu_torch.pipeline import Estimator
+from ground_fusion_tpu_torch.scripts.parity import GnssTruth, feed_drive, simulator_drive
 from ground_fusion_tpu_torch.sim import synthetic as tsim
 from ground_fusion_tpu_torch.utils.evaluate import ate_rmse
 
@@ -69,7 +69,7 @@ class _Traffic:
 
 @pytest.fixture(scope="module")
 def drive():
-    return chip_smoke.simulator_drive(N_FRAMES, n_landmarks=60)
+    return simulator_drive(N_FRAMES, n_landmarks=60)
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +77,7 @@ def started(drive):
     """One estimator replayed until its first solve (NON_LINEAR)."""
     cfg = _small()
     est = Estimator(cfg, dtype=DT, device="cpu")
-    chip_smoke.feed_drive(est, drive, range(cfg.num_frames))
+    feed_drive(est, drive, range(cfg.num_frames))
     assert est.solver_flag == Estimator.NON_LINEAR and len(est.trajectory) == 1
     return est
 
@@ -93,7 +93,7 @@ def modes(started, drive):
         elif mode == "burst5":
             est.enable_burst(5)
         traffic = _Traffic(est)
-        returned = chip_smoke.feed_drive(est, drive, range(started.cfg.num_frames, N_FRAMES))
+        returned = feed_drive(est, drive, range(started.cfg.num_frames, N_FRAMES))
         out[mode] = (est, traffic, returned)
     return out
 
@@ -145,7 +145,7 @@ def test_burst_per_frame_failure_truncates_and_reboots(started, drive):
     (``tests/test_burst.py:287``)."""
     est = copy.deepcopy(started)
     est.enable_burst(50)
-    chip_smoke.feed_drive(est, drive, range(est.cfg.num_frames, est.cfg.num_frames + 3))
+    feed_drive(est, drive, range(est.cfg.num_frames, est.cfg.num_frames + 3))
     assert len(est._burst_xs) == 3, "frames did not stage"
     n_before = len(est.trajectory)
     tight = dataclasses.replace(est.cfg, solver=dataclasses.replace(est.cfg.solver,
@@ -168,16 +168,16 @@ def test_burst_with_lines_matches_per_frame():
     cfg = dataclasses.replace(
         cfg, lines=dataclasses.replace(cfg.lines, max_lines=8, min_obs=4),
         camera=dataclasses.replace(cfg.camera, t_ic=tuple(exn[0:3]), q_ic=tuple(exn[3:7])))
-    drive = chip_smoke.simulator_drive(12, n_landmarks=100, segments=6)
+    drive = simulator_drive(12, n_landmarks=100, segments=6)
     assert [k for k, fr in enumerate(drive) if fr["lines"]] == [8, 9, 10, 11]
     est = Estimator(cfg, dtype=DT, device="cpu")
-    chip_smoke.feed_drive(est, drive, range(8))
+    feed_drive(est, drive, range(8))
     runs = {}
     for chunk in (0, 4):
         e = copy.deepcopy(est)
         if chunk:
             e.enable_burst(chunk)
-        chip_smoke.feed_drive(e, drive, range(8, 12))
+        feed_drive(e, drive, range(8, 12))
         e.flush_burst()
         runs[chunk] = e
     a, b = runs[0], runs[4]
@@ -204,12 +204,11 @@ def test_gnss_burst_replay_matches_per_frame():
     per frame; chunks form only in the outage. Poses within 1e-3 m, the
     same alignment frame, yaw and anchor."""
     from tests.test_torch_gnss_pipeline import N_FRAMES as G_FRAMES, OUTAGE, _small as g_small
-    from tests.test_torch_gnss_pipeline import _Truth
     from ground_fusion_tpu_torch.config import Config as TConfig
 
     tsp = tsim.SimParams()
-    truth = _Truth(tsp)
-    drive = chip_smoke.simulator_drive(G_FRAMES + 4, n_landmarks=200)
+    truth = GnssTruth(tsp)
+    drive = simulator_drive(G_FRAMES + 4, n_landmarks=200)
     runs = {}
     for chunk in (0, 4):
         est = Estimator(g_small(TConfig), dtype=DT, device="cpu")
@@ -219,7 +218,7 @@ def test_gnss_burst_replay_matches_per_frame():
         for k, fr in enumerate(drive):
             if not OUTAGE[0] <= k < OUTAGE[1] + 4:
                 est.input_gnss(fr["t"], copy.deepcopy(truth.epoch(fr["t"])))
-            chip_smoke.feed_drive(est, drive, [k])
+            feed_drive(est, drive, [k])
             if est.gnss_aligned and aligned_at is None:
                 aligned_at = k
         est.flush_burst()
@@ -243,10 +242,10 @@ def test_burst_replay_matches_the_jax_package():
     from tests.test_pipeline import run_pipeline
 
     est_j, _ = run_pipeline(n_frames=24, burst=5)
-    drive = chip_smoke.simulator_drive(24, n_landmarks=200)
+    drive = simulator_drive(24, n_landmarks=200)
     est = Estimator(Config(), dtype=DT, device="cpu")
     est.enable_burst(5)
-    chip_smoke.feed_drive(est, drive, range(24))
+    feed_drive(est, drive, range(24))
     est.flush_burst()
     assert len(est.trajectory) == len(est_j.trajectory)
     pj = np.stack([np.asarray(p)[0:3] for _, p in est_j.trajectory])

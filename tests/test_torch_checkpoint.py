@@ -47,6 +47,7 @@ from ground_fusion_tpu_torch.global_layers.pose_graph import PoseGraph as TPoseG
 from ground_fusion_tpu_torch.pipeline import Estimator as TEstimator
 from ground_fusion_tpu_torch.sim.synthetic import SimParams, build_window_problem
 from ground_fusion_tpu_torch.scripts import build_grid as tbuild
+from ground_fusion_tpu_torch.scripts.parity import feed_drive, simulator_drive
 from ground_fusion_tpu_torch.system import GroundFusionSystem
 from ground_fusion_tpu_torch.utils import checkpoint as tckpt
 from ground_fusion_tpu_torch.utils.convert import core_from_numpy, pose_graph_to_numpy
@@ -243,9 +244,9 @@ def test_resume_drive_holds_the_oracles_bound(tmp_path):
     the resumed poses within the oracle's 0.05 m ATE."""
     cfg = dataclasses.replace(TConfig(), solver=dataclasses.replace(
         TConfig().solver, window_size=4, max_landmarks=32, max_iters=2))
-    drive = chip_smoke.simulator_drive(34, n_landmarks=60)
+    drive = simulator_drive(34, n_landmarks=60)
     est = TEstimator(cfg, dtype=DT, device=CPU)
-    chip_smoke.feed_drive(est, drive, range(22))
+    feed_drive(est, drive, range(22))
     assert est.solver_flag == est.NON_LINEAR
     path = str(tmp_path / "vio_state.npz")
     est.save_state(path)
@@ -253,7 +254,7 @@ def test_resume_drive_holds_the_oracles_bound(tmp_path):
     est2.load_state(path)
     assert est2.solver_flag == est2.NON_LINEAR and est2.slot_of == est.slot_of and est2.ts == est.ts
     assert torch.equal(est2.core.state.poses, est.core.state.poses)
-    chip_smoke.feed_drive(est2, drive, range(22, 34))
+    feed_drive(est2, drive, range(22, 34))
     t_snap = drive[21]["t"]
     post = [(t, p) for t, p in est2.trajectory if t > t_snap]
     assert len(post) == 12 and est2.reboots == 0

@@ -29,22 +29,17 @@ torch.set_num_threads(1)      # small tensors; leave the cores to the other test
 from ground_fusion_tpu.config import Config as JConfig
 from ground_fusion_tpu.pipeline import Estimator as JEstimator
 from ground_fusion_tpu.pipeline import FrameFeature as JFeature
-from ground_fusion_tpu.sim import synthetic as jsim
 from ground_fusion_tpu_torch.config import Config as TConfig
-from ground_fusion_tpu_torch.geometry.se3 import pose_apply, pose_inverse
-from ground_fusion_tpu_torch.geometry.so3 import quat_to_mat
-from ground_fusion_tpu_torch.gnss.coords import ecef2rotation, geo2ecef
+from ground_fusion_tpu_torch.gnss.coords import ecef2rotation
 from ground_fusion_tpu_torch.pipeline import Estimator as TEstimator
 from ground_fusion_tpu_torch.pipeline import FrameFeature as TFeature
-from ground_fusion_tpu_torch.sim import gnss as tsim_gnss
+from ground_fusion_tpu_torch.scripts.parity import GnssTruth, feed_sensors, simulator_drive
 from ground_fusion_tpu_torch.sim import synthetic as tsim
 from ground_fusion_tpu_torch.utils import convert
 from ground_fusion_tpu_torch.utils.evaluate import ate_rmse
 
 N_FRAMES = 14
 OUTAGE = (10, 12)          # frames without an epoch, after alignment
-YAW_TRUE = 0.25
-ANC_TRUE = geo2ecef(np.array([np.deg2rad(31.0), np.deg2rad(121.4), 12.0]))
 
 
 def _small(config_cls):
@@ -52,30 +47,6 @@ def _small(config_cls):
     return dataclasses.replace(
         cfg, solver=dataclasses.replace(cfg.solver, window_size=4, max_landmarks=32),
         gnss=dataclasses.replace(cfg.gnss, enabled=True, track_num_thresh=1))
-
-
-class _Truth:
-    """The GNSS world of ``_run_gnss_pipeline``: the simulator's frame mapped
-    to ECEF through the first pose, the anchor and the ENU-local yaw."""
-
-    def __init__(self, sp):
-        self.sp = sp
-        cy, sy = np.cos(YAW_TRUE), np.sin(YAW_TRUE)
-        self.R = ecef2rotation(ANC_TRUE) @ np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1.0]])
-        self.T0_inv = pose_inverse(tsim.gt_pose7(0.0, sp))
-        rng = np.random.default_rng(3)
-        self.sats = tsim_gnss.sky(ANC_TRUE, 10, rng, el_deg=(35.0, 80.0))
-        self.sat_vel = rng.normal(0, 2500, (10, 3))
-
-    def p_ecef(self, t):
-        p_local = pose_apply(self.T0_inv, tsim.gt_pose7(t, self.sp)[0:3]).numpy()
-        return ANC_TRUE + self.R @ p_local
-
-    def epoch(self, t):
-        R0 = quat_to_mat(self.T0_inv[3:7]).numpy()
-        V = self.R @ (R0 @ tsim.gt_velocity(t, self.sp).numpy())
-        return tsim_gnss.observe(self.p_ecef(t), V, self.sats, self.sat_vel,
-                                 np.array([15.0, 0.0, 0.0, 22.0]), 4.0)
 
 
 def _jax_reanchor_until_aligned(state_before, state_after):
@@ -126,50 +97,30 @@ def replay():
 
 
 def _replay():
-    jsp, tsp = jsim.SimParams(), tsim.SimParams()
     je = JEstimator(_small(JConfig), dtype=jnp.float64)
     je.native = None                      # Python queues in both, as the port has them
     te = TEstimator(_small(TConfig), dtype=torch.float64, device="cpu")
     last = _record_last_gnss_step(je)
-    truth = _Truth(tsp)
-    ex = jsim.body_T_cam(jnp.float64)
-    pts_w = jnp.asarray(jsim.make_landmarks(200, jsp, seed=1), jnp.float64)
-    frame_dt, imu_dt, wheel_dt = 1.0 / jsp.frame_rate, 1.0 / jsp.imu_rate, 1.0 / jsp.wheel_rate
-
-    def sensors(imu_ts, wheel_ts):
-        acc, gyr = (x.numpy() for x in tsim.imu_samples(imu_ts, tsp))
-        vel, wgyr = (x.numpy() for x in tsim.wheel_samples(wheel_ts, tsp))
-        for e in (je, te):
-            for ti, a, g in zip(imu_ts, acc, gyr):
-                e.input_imu(float(ti), a, g)
-            for ti, v, w in zip(wheel_ts, vel, wgyr):
-                e.input_wheel(float(ti), v, w)
-
-    sensors(np.asarray([0.0]), np.asarray([0.0]))
+    truth = GnssTruth(tsim.SimParams())
     poses, gt, aligned_at = [], [], {"jax": None, "torch": None}
-    for k in range(N_FRAMES):
-        t = k * frame_dt
-        if k > 0:
-            sensors(np.arange(t - frame_dt + imu_dt, t + 0.5 * imu_dt, imu_dt),
-                    np.arange(t - frame_dt + wheel_dt, t + 0.5 * wheel_dt, wheel_dt))
+    for k, fr in enumerate(simulator_drive(N_FRAMES)):
+        t = fr["t"]
+        for e in (je, te):
+            feed_sensors(e, fr)
         if not OUTAGE[0] <= k < OUTAGE[1]:
             ep = truth.epoch(t)
             je.input_gnss(t, copy.deepcopy(ep))
             te.input_gnss(t, copy.deepcopy(ep))
-        pose_gt = jsim.gt_pose7(t, jsp)
-        uv, z, vis = (np.asarray(x) for x in jsim.project_landmarks(pose_gt, ex, pts_w))
-        ids = np.nonzero(vis)[0]
-        pj = je.input_frame(t, {int(i): JFeature(x=float(uv[i, 0]), y=float(uv[i, 1]),
-                                                 depth=float(z[i])) for i in ids})
-        pt = te.input_frame(t, {int(i): TFeature(x=float(uv[i, 0]), y=float(uv[i, 1]),
-                                                 depth=float(z[i])) for i in ids})
+        feats = fr["feats"].items()
+        pj = je.input_frame(t, {i: JFeature(x=x, y=y, depth=d) for i, (x, y, d) in feats})
+        pt = te.input_frame(t, {i: TFeature(x=x, y=y, depth=d) for i, (x, y, d) in feats})
         assert (pj is None) == (pt is None), f"frame {k}: only one estimator gave a pose"
         for name, e in (("jax", je), ("torch", te)):
             if e.gnss_aligned and aligned_at[name] is None:
                 aligned_at[name] = k
         if pj is not None:
             poses.append((np.asarray(pj), np.asarray(pt)))
-            gt.append((t, np.asarray(pose_gt)))
+            gt.append((t, fr["gt"]))
     return je, te, poses, gt, aligned_at, truth, last
 
 

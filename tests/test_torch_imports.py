@@ -293,8 +293,6 @@ def test_m2dgrp_config_builds_with_gnss(tmp_path):
     """``configs/m2dgrp.yaml`` (tight GNSS) builds in the port: the estimator
     carries a GNSS table and ingest, the system waits for GPS fixes."""
     from ground_fusion_tpu_torch.pipeline import Estimator
-    from ground_fusion_tpu_torch.scripts import bow_sweep, parity, profile_step
-    from ground_fusion_tpu_torch.sim.synthetic import SimParams, build_window_problem
     from ground_fusion_tpu_torch.system import GroundFusionSystem
 
     cfg = load_yaml(os.path.join(ROOT, "configs", "m2dgrp.yaml"))

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)      # the raise below was met with one thread
+torch.set_num_threads(1)      # small tensors; leave the cores to the other test workers
 
 import chip_smoke
 
@@ -90,7 +90,17 @@ def test_clipped_pinv_of_a_nan_block_is_nan_not_a_raise():
                                rtol=0, atol=1e-8 * float(np.abs(np.linalg.pinv(good.numpy())).max()))
 
 
-def test_float32_keyframe_step_on_the_dryrun_core_runs():
+@pytest.fixture
+def one_thread():
+    """One CPU thread for the test, whatever the worker's count (the raise
+    below was met with one); the count before it is restored after it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_float32_keyframe_step_on_the_dryrun_core_runs(one_thread):
     """``make_window_step`` in float32 on ``chip_smoke.dryrun_core`` of the
     ``dense`` case of ``chip_smoke.shard_step_cases("small")``, keyframe
     branch, first step: before the repair its frame-0 marginalization raised

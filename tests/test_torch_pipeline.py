@@ -37,6 +37,7 @@ from ground_fusion_tpu_torch.config import Config as TConfig
 from ground_fusion_tpu_torch.estimator import step as tstep_module
 from ground_fusion_tpu_torch.pipeline import Estimator as TEstimator
 from ground_fusion_tpu_torch.pipeline import FrameFeature as TFeature
+from ground_fusion_tpu_torch.scripts.parity import feed_sensors, simulator_drive
 from ground_fusion_tpu_torch.sim import synthetic as tsim
 from ground_fusion_tpu_torch.utils.evaluate import ate_rmse
 
@@ -87,11 +88,12 @@ class GateLog:
 
 
 def _replay(sim_kw, n_frames=N_FRAMES, drop_feats=None, gates=None):
-    """Both estimators on the identical sensor and feature stream. Both
-    replays share one JAX window program (the same config), compiled once.
-    ``drop_feats(k)`` keeps that fraction of frame k's visible features (in
-    id order, as ``tests/test_pipeline.py::run_pipeline`` does). With
-    ``gates`` (a list) each frame appends both estimators' decisions."""
+    """Both estimators on the identical sensor and feature stream (the
+    port's ``simulator_drive``). Both replays share one JAX window program
+    (the same config), compiled once. ``drop_feats(k)`` keeps that fraction
+    of frame k's visible features (in id order, as
+    ``tests/test_pipeline.py::run_pipeline`` does). With ``gates`` (a list)
+    each frame appends both estimators' decisions."""
     jsp = jsim.SimParams(**sim_kw)
     tsp = tsim.SimParams(**sim_kw)
     je = JEstimator(_small(JConfig), dtype=jnp.float64)
@@ -105,46 +107,33 @@ def _replay(sim_kw, n_frames=N_FRAMES, drop_feats=None, gates=None):
         tlog = GateLog(te, lambda a: a.numpy())
     ex = jsim.body_T_cam(jnp.float64)
     pts_w = jnp.asarray(jsim.make_landmarks(60, jsp, seed=1), jnp.float64)
-    frame_dt, imu_dt, wheel_dt = 1.0 / jsp.frame_rate, 1.0 / jsp.imu_rate, 1.0 / jsp.wheel_rate
+    drive = simulator_drive(n_frames, n_landmarks=60, sp=tsp)
 
-    def sensors(ts):
-        """Simulator samples at ``ts`` (the port's, vectorised; held against
-        the JAX package's at the first time: 1e-12) into both estimators."""
-        acc, gyr = (x.numpy() for x in tsim.imu_samples(ts["imu"], tsp))
-        vel, wgyr = (x.numpy() for x in tsim.wheel_samples(ts["wheel"], tsp))
-        t0 = float(ts["imu"][0])
-        for got, want in zip((acc[0], gyr[0]), jsim.imu_sample(t0, jsp)):
-            assert np.abs(got - np.asarray(want)).max() <= 1e-12
-        t0 = float(ts["wheel"][0])
-        for got, want in zip((vel[0], wgyr[0]), jsim.wheel_sample(t0, jsp)):
-            assert np.abs(got - np.asarray(want)).max() <= 1e-12
-        for e in (je, te):
-            for ti, a, g in zip(ts["imu"], acc, gyr):
-                e.input_imu(float(ti), a, g)
-            for ti, v, w in zip(ts["wheel"], vel, wgyr):
-                e.input_wheel(float(ti), v, w)
-
-    sensors({"imu": np.asarray([0.0]), "wheel": np.asarray([0.0])})
     poses, gt = [], []
-    for k in range(n_frames):
-        t = k * frame_dt
-        if k > 0:
-            sensors({"imu": np.arange(t - frame_dt + imu_dt, t + 0.5 * imu_dt, imu_dt),
-                     "wheel": np.arange(t - frame_dt + wheel_dt, t + 0.5 * wheel_dt, wheel_dt)})
+    for k, fr in enumerate(drive):
+        # the port's simulator held against the JAX package's: the interval's
+        # first samples and the frame's visible features, at 1e-12
+        t = fr["t"]
+        for (ti, *got), want in ((fr["imu"][0], jsim.imu_sample), (fr["wheel"][0], jsim.wheel_sample)):
+            for a, b in zip(got, want(ti, jsp)):
+                assert np.abs(a - np.asarray(b)).max() <= 1e-12
         pose_gt = jsim.gt_pose7(t, jsp)
         uv, z, vis = (np.asarray(x) for x in jsim.project_landmarks(pose_gt, ex, pts_w))
-        ids = np.nonzero(vis)[0]
+        assert list(fr["feats"]) == np.nonzero(vis)[0].tolist()
+        assert all(np.abs(np.array(f) - [uv[i, 0], uv[i, 1], z[i]]).max() <= 1e-12
+                   for i, f in fr["feats"].items())
+        for e in (je, te):
+            feed_sensors(e, fr)
+        feats = list(fr["feats"].items())
         if drop_feats is not None:
-            ids = ids[: max(0, int(round(drop_feats(k) * len(ids))))]
+            feats = feats[: max(0, int(round(drop_feats(k) * len(feats))))]
         n_steps = (len(jlog.steps), len(tlog.steps)) if gates is not None else None
-        pj = je.input_frame(t, {int(i): JFeature(x=float(uv[i, 0]), y=float(uv[i, 1]),
-                                                 depth=float(z[i])) for i in ids})
-        pt = te.input_frame(t, {int(i): TFeature(x=float(uv[i, 0]), y=float(uv[i, 1]),
-                                                 depth=float(z[i])) for i in ids})
+        pj = je.input_frame(t, {i: JFeature(x=x, y=y, depth=d) for i, (x, y, d) in feats})
+        pt = te.input_frame(t, {i: TFeature(x=x, y=y, depth=d) for i, (x, y, d) in feats})
         assert (pj is None) == (pt is None), f"frame {k}: only one estimator gave a pose"
         if pj is not None:
             poses.append((np.asarray(pj), np.asarray(pt)))
-            gt.append(np.asarray(pose_gt))
+            gt.append(fr["gt"])
         if gates is not None:
             gates.append({
                 name: dict(pose=None if p is None else np.asarray(p),

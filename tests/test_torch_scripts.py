@@ -24,14 +24,22 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
-
 from ground_fusion_tpu_torch.config import Config
 from ground_fusion_tpu_torch.scripts import bow_sweep, convert_bag, long_horizon
 from ground_fusion_tpu_torch.scripts import make_synth_seq, parity, profile_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two CPU threads for this file's window steps; the worker's count
+    before them is restored after them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _jax_script(name):

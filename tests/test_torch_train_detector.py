@@ -20,8 +20,6 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-torch.set_num_threads(2)
-
 import chip_smoke
 from ground_fusion_tpu.detector import model as jmodel
 from ground_fusion_tpu.detector import train as jtrain
@@ -31,6 +29,16 @@ from ground_fusion_tpu_torch.scripts import train_detector
 
 CPU = torch.device("cpu")
 LEAF_TOL = 2e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two CPU threads for this file's training steps; the worker's count
+    before them is restored after them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _jax_params():
