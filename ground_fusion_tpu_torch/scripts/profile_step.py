@@ -16,9 +16,9 @@ around the call and a synchronize, median of ``--reps``); the device ms
 (CUDA events recorded on the stream before and after the call: the
 device's clock over the call, idle gaps included, so every kernel of the
 call lies inside it); the kernel ms and number of kernels that
-``torch.profiler`` records (after its warm-up step; a kernel the profiler
-does not see is missing from it, so it is a lower bound of the device's
-busy time); and the tensor operations dispatched (a ``TorchDispatchMode``;
+``torch.profiler`` records (after its warm-up step; for a cheap stage the
+fuller of two sessions: it loses kernels now and then, so this is a lower
+bound of the device's busy time); and the tensor operations dispatched (a ``TorchDispatchMode``;
 on a GPU each is about one kernel launch). The device columns read "not
 measured" on the CPU. The kernels are recorded without the host's
 operations; with ``--trace-dir`` the profiler's whole trace of each stage,
@@ -39,6 +39,8 @@ import time
 # the stages the whole step runs one after another (the others are parts of
 # the solve); their kernel ms sum to no more than the step's
 TOP_LEVEL = ("preint imu", "preint wheel", "triangulate", "solve", "marginalize_old")
+# a stage whose call takes less host time than this is profiled twice
+CHEAP_MS = 100.0
 
 
 def count_ops(fn) -> int:
@@ -146,8 +148,8 @@ def measure(name, fn, device, reps: int, trace_dir=None) -> dict:
     call's first work to its last, the gaps where it waits for the host
     included; every kernel lies inside it); kernel ms and kernels (the
     kernels' own time and number under ``torch.profiler``, recorded after
-    its warm-up step); and the operations one call dispatches. The device
-    columns are None on the CPU."""
+    its warm-up step; for a call under :data:`CHEAP_MS`, the fuller of two
+    sessions); and the operations one call dispatches. The device columns are None on the CPU."""
     import torch
     from torch.autograd import DeviceType
 
@@ -172,17 +174,23 @@ def measure(name, fn, device, reps: int, trace_dir=None) -> dict:
     row = {"stage": name, "host_ms": statistics.median(host), "device_ms": None,
            "kernel_ms": None, "kernels": None, "ops": ops}
     if cuda:
-        with device_trace(trace_dir, host=trace_dir is not None) as prof:
-            for _ in range(reps):
-                fn()
-            _sync(device)
-        # the device's own rows only: with the host side recorded, an
-        # operator's row carries its kernels' time a second time
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-                   for e in rows)
-        row.update(device_ms=statistics.median(span), kernel_ms=busy / reps / 1e3,
-                   kernels=sum(e.count for e in rows) / reps)
+        # the profiler now and then loses some or all kernels of a session
+        # (tools/profiler_coverage.py); where a call is cheap, the fuller of
+        # two sessions counts (a session of the whole step takes seconds)
+        best = (-1, 0.0)
+        for _ in range(2 if row["host_ms"] < CHEAP_MS else 1):
+            with device_trace(trace_dir, host=trace_dir is not None) as prof:
+                for _ in range(reps):
+                    fn()
+                _sync(device)
+            # the device's own rows only: with the host side recorded, an
+            # operator's row carries its kernels' time a second time
+            rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            best = max(best, (sum(e.count for e in rows),
+                              sum(getattr(e, "self_device_time_total", None)
+                                  or getattr(e, "self_cuda_time_total", 0.0) for e in rows)))
+        row.update(device_ms=statistics.median(span), kernel_ms=best[1] / reps / 1e3,
+                   kernels=best[0] / reps)
     return row
 
 
