@@ -149,7 +149,8 @@ def measure(name, fn, device, reps: int, trace_dir=None) -> dict:
     included; every kernel lies inside it); kernel ms and kernels (the
     kernels' own time and number under ``torch.profiler``, recorded after
     its warm-up step; for a call under :data:`CHEAP_MS`, the fuller of two
-    sessions); and the operations one call dispatches. The device columns are None on the CPU."""
+    sessions); and the operations one call dispatches. The device columns
+    are None on the CPU."""
     import torch
     from torch.autograd import DeviceType
 
